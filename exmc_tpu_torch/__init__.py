@@ -1,0 +1,15 @@
+"""exmc_tpu_torch: the PyTorch/CUDA port of exmc_tpu.
+
+The JAX package ``exmc_tpu`` is the reference; this package mirrors its
+module names and is held against it by ``tests/test_torch_*.py``. It
+imports torch, numpy and the standard library only. Entry points run on
+``device="cuda"`` unless the caller asks for ``"cpu"``.
+"""
+
+from exmc_tpu_torch import dists
+from exmc_tpu_torch.compiler import compile_logp
+from exmc_tpu_torch.ir import IR, Builder, Node
+from exmc_tpu_torch.nuts.sampler import NUTSSampler, sample
+
+__all__ = ["Builder", "IR", "Node", "dists", "compile_logp", "NUTSSampler",
+           "sample"]

@@ -1,0 +1,52 @@
+"""Differentiable special-function helpers (the part of
+``exmc_tpu/math.py`` that the ported distributions and transforms use)."""
+
+import math
+
+import torch
+
+from exmc_tpu_torch.config import SCALE_FLOOR
+
+LOG_2PI = math.log(2.0 * math.pi)
+LOG_SQRT_2PI = 0.5 * LOG_2PI
+
+
+def floor_scale(sigma):
+    """Floor scale params at 1e-30 so a bad warmup point never divides
+    by zero."""
+    return torch.clamp_min(sigma, SCALE_FLOOR)
+
+
+def event_sum(x):
+    """Sum over every axis but the leading chain axis: (C, *event) -> (C,).
+
+    This is where the JAX package's all-axes ``jnp.sum`` of one point
+    becomes a per-chain sum, so chains never mix. A tensor with no
+    event axes comes back as it is (``torch.sum(x, dim=())`` would sum
+    everything)."""
+    if x.ndim <= 1:
+        return x
+    return x.flatten(1).sum(1)
+
+
+def logsumexp(x, dim):
+    return torch.logsumexp(x, dim=dim)
+
+
+def log1mexp(x):
+    """log(1 - exp(x)) for x <= 0, numerically stable."""
+    return torch.where(
+        x > -math.log(2.0),
+        torch.log(-torch.expm1(x)),
+        torch.log1p(-torch.exp(x)),
+    )
+
+
+def softplus(x):
+    """log(1 + exp(x)) as logaddexp(x, 0), the JAX package's formula."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def inv_softplus(y):
+    """Inverse of softplus: log(expm1(y)) = y + log(1 - exp(-y))."""
+    return y + log1mexp(-y)

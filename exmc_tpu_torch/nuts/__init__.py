@@ -1,0 +1,7 @@
+"""Batched NUTS: leapfrog, dual averaging, Welford, warmup schedule,
+the multinomial tree and the sampling pipeline."""
+
+from exmc_tpu_torch.nuts.sampler import NUTSSampler, sample
+from exmc_tpu_torch.nuts.tree import nuts_transition
+
+__all__ = ["NUTSSampler", "sample", "nuts_transition"]

@@ -1,0 +1,71 @@
+"""Welford online variance for the diagonal mass matrix
+(``exmc_tpu/nuts/mass_matrix.py``).
+
+Per-chain state: n (C,), mean (C, d), m2 (C, d). Stan shrinkage
+``(n/(n+5))*var + (5/(n+5))*1e-3`` with a 1e-6 floor. The dense m2 is
+not ported yet (ROADMAP §1 item 5).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+
+class WelfordState(NamedTuple):
+    n: torch.Tensor       # (C,) counts, or () after a merge
+    mean: torch.Tensor    # (C, d) or (d,)
+    m2: torch.Tensor      # (C, d) or (d,)
+
+
+def welford_init(c, d, dtype=torch.float32, device=None):
+    return WelfordState(
+        n=torch.zeros(c, dtype=dtype, device=device),
+        mean=torch.zeros(c, d, dtype=dtype, device=device),
+        m2=torch.zeros(c, d, dtype=dtype, device=device),
+    )
+
+
+def welford_update(state: WelfordState, x, enabled):
+    """Online update of each chain with its row of ``x`` (C, d); a chain
+    whose ``enabled`` is False (e.g. a divergent draw) keeps its state.
+    The blend multiplies by 0/1 instead of selecting, as the JAX package
+    does, so the bits match (a non-finite x reaches the state either
+    way)."""
+    n = state.n + 1.0
+    delta = x - state.mean
+    mean = state.mean + delta / n[:, None]
+    delta2 = x - mean
+    m2 = state.m2 + delta * delta2
+    w = enabled.to(x.dtype)
+    wc = w[:, None]
+    return WelfordState(
+        n=state.n * (1 - w) + n * w,
+        mean=state.mean * (1 - wc) + mean * wc,
+        m2=state.m2 * (1 - wc) + m2 * wc,
+    )
+
+
+def welford_merge_across(state: WelfordState) -> WelfordState:
+    """Merge the per-chain states over dim 0 as if all chains' draws were
+    one stream (Chan et al. parallel variance). Returns one state with
+    no chain axis: n (), mean (d,), m2 (d,)."""
+    n_tot = state.n.sum(0)
+    safe = torch.clamp_min(n_tot, 1.0)
+    mean_tot = (state.n[:, None] * state.mean).sum(0) / safe
+    delta = state.mean - mean_tot
+    corr = state.n[:, None] * delta * delta
+    m2_tot = (state.m2 + corr).sum(0)
+    return WelfordState(n=n_tot, mean=mean_tot, m2=m2_tot)
+
+
+def welford_finalize(state: WelfordState, prev):
+    """Finalize to a variance with Stan shrinkage and floor; keeps
+    ``prev`` where fewer than 2 samples accumulated. Broadcasts a merged
+    (chain-less) state against a per-chain ``prev`` (C, d)."""
+    cnt = state.n.unsqueeze(-1)
+    n = torch.clamp_min(cnt, 2.0)
+    alpha = 5.0 / (cnt + 5.0)
+    var = state.m2 / (n - 1.0)
+    shrunk = (1.0 - alpha) * var + alpha * 1e-3
+    shrunk = torch.clamp_min(shrunk, 1e-6)
+    return torch.where(cnt >= 2.0, shrunk, prev)
