@@ -16,7 +16,14 @@ Phases, each printing one JSON line:
                rescue, max_depth 10) with its posterior checked against
                the statistical target, and the compiled model checked
                against the same model on the CPU;
-  5. kernels — one JSON object with every kernel's numbers.
+  5. suite   — the seven-model suite under the JAX package's recipe
+               (chain counts, centered models, interweave and
+               gibbs_scales) at full width, one seed, SUITE_ITERS
+               iterations; one line per model, each held to its gates
+               (finite draws, split R-hat, divergence rate, posterior
+               means against the JAX package's), with the interweave step
+               and conditional metric run once under CUDA's sync check;
+  6. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
 """
@@ -32,6 +39,7 @@ import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
+from exmc_tpu_torch.benchmarks import suite
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -47,6 +55,12 @@ OPS_EPS = 0.05
 TOL_QP = 1e-4          # |kernel - plain| on q and p (same f32 steps, no FMA)
 TOL_LOGP_ABS = 1e-3    # logp sums d terms in another order than torch.sum
 TOL_LOGP_REL = 1e-5
+
+# Suite phase: (warmup, draws) of every model, one seed. The JAX
+# package's suite runs 1000+1000 x 5 seeds; this is the shortest run the
+# gates are stated for, and it keeps the script within half its time
+# limit on one card (PERF.md, "Suite on the card").
+SUITE_ITERS = (150, 150)
 
 
 def emit(obj):
@@ -181,6 +195,23 @@ def phase_main(num_warmup, num_samples):
     return main_launches
 
 
+def phase_suite():
+    """Every suite model under the recipe at full width, SUITE_ITERS
+    iterations, one line per model; a model that breaks a gate fails the
+    script after the phase. Returns the phase's kernel launches."""
+    fused_leapfrog_gaussian.launches = 0
+    failures = []
+    for name in suite.MODELS:
+        res = suite.run_checked(name, *SUITE_ITERS, device="cuda")
+        emit({"phase": "suite", **res})
+        if res["gate_failures"]:
+            failures.append(f"{name}: {'; '.join(res['gate_failures'])}")
+    launches = {"fused_leapfrog_gaussian": fused_leapfrog_gaussian.launches}
+    if failures:
+        fail("suite: " + " | ".join(failures))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="exmc_tpu_torch smoke run on one card")
     ap.add_argument("--warmup", type=int, default=200,
@@ -210,6 +241,7 @@ def main(argv=None):
         fail(f"ops path launched the kernel {path_launches} times, "
              f"expected {len(OPS_SHAPES)}")
     main_launches = phase_main(args.warmup, args.draws)
+    suite_launches = phase_suite()
 
     big = rows[-1]
     print(smi, flush=True)
@@ -222,6 +254,7 @@ def main(argv=None):
         "launches_path": "exmc_tpu_torch.ops.fused_leapfrog_gaussian at "
                          f"{len(OPS_SHAPES)} shapes",
         "main_path_launches": main_launches["fused_leapfrog_gaussian"],
+        "suite_path_launches": suite_launches["fused_leapfrog_gaussian"],
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

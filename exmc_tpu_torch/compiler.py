@@ -8,7 +8,13 @@ over chains, the port evaluates a (C, d) batch of flat points at once:
 one point is taken here over the event axes only (``math.event_sum``),
 so chains never mix. ``value_and_grad`` is one ``torch.autograd.grad``
 of the chain-summed logp; since chain i's logp depends on row i alone,
-row i of that gradient is exactly chain i's gradient.
+row i of that gradient is exactly chain i's gradient. On the card the
+value-and-grad is replayed from a CUDA graph per batch shape
+(``GraphedValueAndGrad``).
+
+Non-centered latents are rebuilt as ``mu + sigma * z``, and a
+GaussianRandomWalk latent as ``sigma * cumsum(z)``, with ``z = V w``
+when the rewrite made it spectral (``_grw_spectral_basis``).
 
 Not ported yet, and refused when the model is compiled: censored
 observations, measurable-lifted observations (``meas_obs``), keyed data
@@ -41,10 +47,28 @@ def _event_logsumexp(x):
     return x if x.ndim <= 1 else torch.logsumexp(x.flatten(1), dim=1)
 
 
+def _matmul(a, x):
+    """The JAX package's ``matmul(a, x)`` of one point, per chain: both
+    operands carry a leading chain axis (1 for a constant), and the
+    product is taken over their event axes. A constant (1, m, k) design
+    matrix against (C, k) coefficients is one (C, k) x (k, m) product,
+    giving (C, m)."""
+    ea, ex = a.ndim - 1, x.ndim - 1
+    if ex == 1:
+        if ea == 2 and a.shape[0] == 1:
+            return x @ a[0].T
+        if ea == 1:
+            return torch.sum(a * x, dim=-1)
+        return torch.matmul(a, x.unsqueeze(-1)).squeeze(-1)
+    if ea == 1:
+        return torch.matmul(a.unsqueeze(-2), x).squeeze(-2)
+    return torch.matmul(a, x)
+
+
 # Deterministic-node ops that act elementwise (or reduce over the event
-# axes) on batched values. The JAX table's matmul/dot/getitem/smul/
-# cumsum/stack/concat wait for the models that need them (ROADMAP §1
-# item 8).
+# axes) on batched values: their arguments are aligned first (``_align``).
+# The JAX table's dot/getitem/smul/cumsum/stack/concat wait for the
+# models that need them (ROADMAP §1).
 DET_OPS = {
     "add": lambda a, b: a + b,
     "sub": lambda a, b: a - b,
@@ -62,6 +86,41 @@ DET_OPS = {
     "identity": lambda x: x,
     "affine": lambda a, b, x: a * x + b,
 }
+
+# Det ops over the event axes as a whole, given their arguments unaligned.
+UNALIGNED_DET_OPS = {"matmul": _matmul}
+
+
+def _grw_spectral_basis(t):
+    """Orthonormal eigenbasis of the cumsum gram C^T C (C the (t, t)
+    lower-triangular ones matrix), in float64 numpy:
+
+        V[i, k] = 2/sqrt(2t+1) * sin((2k+1) pi (t-i) / (2t+1))
+
+    A GRW latent sampled as w with z = V w keeps its N(0, I) prior
+    (|w| = |z|) while the likelihood curvature of iid observations of
+    s = sigma * cumsum(z) becomes diagonal in w
+    (``exmc_tpu/compiler.py:166-190``)."""
+    i = np.arange(t)[:, None]
+    k = np.arange(t)[None, :]
+    return 2.0 / np.sqrt(2 * t + 1) * np.sin(
+        (2 * k + 1) * np.pi * (t - i) / (2 * t + 1))
+
+
+def _ncp_invert(info, x, mu, sigma):
+    """Inverse of the NCP reconstruction, per chain: z = (x - mu) / sigma;
+    for the GRW kind the first differences over sigma, rotated by
+    w = V^T z when spectral. ``x`` is (C, *event) and ``mu``/``sigma``
+    are aligned against it."""
+    if info.get("kind") == "grw":
+        inc = torch.cat([x[..., :1], torch.diff(x, dim=-1)], dim=-1)
+        z = inc / sigma
+        if info.get("spectral"):
+            v = torch.as_tensor(_grw_spectral_basis(z.shape[-1]),
+                                dtype=z.dtype, device=z.device)
+            z = z @ v
+        return z
+    return (x - mu) / sigma
 
 
 def _align(vals):
@@ -132,10 +191,11 @@ class _Graph:
                 self.params[nid] = {k: prep(v) for k, v in node.op[2].items()}
             elif tag == "det":
                 fn = node.op[1]
-                if isinstance(fn, str) and fn not in DET_OPS:
+                if isinstance(fn, str) and fn not in DET_OPS and (
+                        fn not in UNALIGNED_DET_OPS):
                     raise NotImplementedError(
                         f"det op {fn!r} of node {nid!r} is not ported yet "
-                        "(ROADMAP §1 item 8)")
+                        "(ROADMAP §1 item 15)")
                 self.args[nid] = [prep(a) for a in node.op[2]]
             elif tag == "obs":
                 _, _, value, meta = node.op
@@ -162,9 +222,17 @@ class _Graph:
                 raise NotImplementedError(
                     f"measurable observation {nid!r} is not ported yet "
                     "(ROADMAP §1 item 3)")
+        # mu/sigma become device tensors; "kind"/"spectral" stay flags
         self.ncp = {
-            nid: {k: prep(v) for k, v in info.items()}
+            nid: {k: prep(v) if k in ("mu", "sigma") else v
+                  for k, v in info.items()}
             for nid, info in ir.ncp_info.items()
+        }
+        # spectral GRW bases, built in float64 and cast once
+        self.bases = {
+            nid: torch.as_tensor(_grw_spectral_basis(ir.nodes[nid].shape[-1]),
+                                 dtype=default_dtype(), device=device)
+            for nid, info in ir.ncp_info.items() if info.get("spectral")
         }
 
     @staticmethod
@@ -191,8 +259,12 @@ class _Graph:
             tag = node.op[0]
             if tag == "det":
                 fn = node.op[1]
-                fn = DET_OPS[fn] if isinstance(fn, str) else fn
-                out = fn(*_align([val(a) for a in self.args[ref]]))
+                args = [val(a) for a in self.args[ref]]
+                if isinstance(fn, str) and fn in UNALIGNED_DET_OPS:
+                    out = UNALIGNED_DET_OPS[fn](*args)
+                else:
+                    fn = DET_OPS[fn] if isinstance(fn, str) else fn
+                    out = fn(*_align(args))
             elif tag == "rv":
                 if ref not in self.free_ids:
                     raise ValueError(
@@ -200,8 +272,13 @@ class _Graph:
                         "the observation's value directly")
                 transform = node.op[3] if len(node.op) == 4 else None
                 out = tf.get(transform).forward(zmap[ref])
-                if ref in self.ncp:
-                    info = self.ncp[ref]
+                info = self.ncp.get(ref)
+                if info is not None and info.get("kind") == "grw":
+                    if ref in self.bases:
+                        out = out @ self.bases[ref].T  # z = V w
+                    sig_v, out = _align([val(info["sigma"]), out])
+                    out = sig_v * torch.cumsum(out, dim=-1)
+                elif info is not None:
                     mu_v, sig_v, out = _align(
                         [val(info["mu"]), val(info["sigma"]), out])
                     out = mu_v + sig_v * out
@@ -275,6 +352,47 @@ def _make_value_and_grad(logp):
     return value_and_grad
 
 
+class GraphedValueAndGrad:
+    """``value_and_grad`` replayed from a CUDA graph, one per input shape.
+
+    The model's forward and backward are hundreds of small kernels per
+    call, and launching them one by one from the host is what bounds the
+    sampler on the card (PERF.md). A graph captures them once and a
+    replay launches them together. The same kernels run on the same
+    inputs, so the results equal the eager call's; each call returns
+    fresh tensors (the graph's outputs are overwritten by the next
+    replay). CPU tensors take the eager path."""
+
+    def __init__(self, vag):
+        self.eager = vag
+        self.graphs = {}
+
+    def __call__(self, flat):
+        if flat.device.type != "cuda":
+            return self.eager(flat)
+        key = (tuple(flat.shape), flat.dtype, flat.device)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(flat)
+        x, lp, g, graph = self.graphs[key]
+        x.copy_(flat)
+        graph.replay()
+        return lp.clone(), g.clone()
+
+    def _capture(self, flat):
+        x = flat.detach().clone()
+        stream = torch.cuda.current_stream(flat.device)
+        side = torch.cuda.Stream(device=flat.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            for _ in range(2):  # warm autograd and the allocator first
+                self.eager(x)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            lp, g = self.eager(x)
+        return x, lp, g, graph
+
+
 def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
                  device=None) -> CompiledModel:
     """Rewrite + compile an IR into a CompiledModel on ``device``
@@ -285,7 +403,8 @@ def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
     graph = _Graph(rw, pm, dev, rw.data)
     logp = _make_logp(graph, pm)
     return CompiledModel(ir=rw, pm=pm, ncp_info=rw.ncp_info, logp=logp,
-                         value_and_grad=_make_value_and_grad(logp),
+                         value_and_grad=GraphedValueAndGrad(
+                             _make_value_and_grad(logp)),
                          device=dev, data=rw.data)
 
 

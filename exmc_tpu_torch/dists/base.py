@@ -6,6 +6,9 @@ IR of either package).
 ``params`` already broadcast against each other (the compiler aligns a
 leading chain dim and the event dims), and the result has the
 broadcast shape. Sums over event axes are the compiler's job.
+
+``sample(params, shape, generator)`` draws from the distribution with
+an explicit ``torch.Generator``, on the generator's device, in float32.
 """
 
 
@@ -18,6 +21,10 @@ class Distribution:
     def default_transform(self, params):
         """Name of the default constraint transform, or None."""
         return None
+
+    def sample(self, params, shape, generator):
+        raise NotImplementedError(
+            f"{self.name}.sample is not ported yet (ROADMAP §1)")
 
     def __repr__(self):
         return f"<dist:{self.name}>"

@@ -1,5 +1,6 @@
 """Differentiable special-function helpers (the part of
-``exmc_tpu/math.py`` that the ported distributions and transforms use)."""
+``exmc_tpu/math.py`` that the ported distributions, transforms and the
+interweave step use)."""
 
 import math
 
@@ -9,6 +10,24 @@ from exmc_tpu_torch.config import SCALE_FLOOR
 
 LOG_2PI = math.log(2.0 * math.pi)
 LOG_SQRT_2PI = 0.5 * LOG_2PI
+HALF_SQRT_2 = 0.5 * math.sqrt(2.0)
+
+
+def lgamma(x):
+    """log|Gamma(x)|; its gradient is digamma(x), as for JAX's gammaln."""
+    return torch.lgamma(x)
+
+
+def ndtr(x):
+    """Standard normal CDF in the formula of ``jax.scipy.special.ndtr``:
+    erf near 0, erfc in both tails, so the lower tail keeps its relative
+    precision in float32 (``0.5 * (1 + erf(x / sqrt 2))`` loses it)."""
+    w = x * HALF_SQRT_2
+    z = torch.abs(w)
+    y = torch.where(z < HALF_SQRT_2, 1.0 + torch.erf(w),
+                    torch.where(w > 0.0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
 
 
 def floor_scale(sigma):

@@ -14,10 +14,14 @@ JAX package folds a key per chain). Init points come from a second
 generator, seeded from ``seed`` and ``CHAIN_SEED_STRIDE``, so they do
 not depend on the transitions' draws.
 
-Not ported yet (ROADMAP §1 items 8 and 9): interweave/gibbs_scales,
-the conditional metric, streaming, ``run_chunked``, ``warm_start``,
-``shared_warmup``, the dense mass matrix, pathfinder and dict inits,
-and the sampler cache.
+``interweave`` runs one ASIS scale update of every eligible group after
+each transition (``nuts/interweave.py``); ``gibbs_scales`` freezes those
+scales in the NUTS dynamics (inverse mass 0) and gives the trajectory
+the analytic conditional metric of their latents.
+
+Not ported yet (ROADMAP §1 item 9): streaming, ``run_chunked``,
+``warm_start``, ``shared_warmup``, the dense mass matrix, pathfinder and
+dict inits, and the sampler cache.
 """
 
 import warnings
@@ -29,6 +33,11 @@ import torch
 
 from exmc_tpu_torch.compiler import CompiledModel, compile_logp, constrain_flat
 from exmc_tpu_torch.config import default_dtype
+from exmc_tpu_torch.nuts.interweave import (
+    build_conditional_metric,
+    build_interweave,
+    eligible_groups,
+)
 from exmc_tpu_torch.nuts.leapfrog import Metric, make_metric
 from exmc_tpu_torch.nuts.masked import HostSyncs, keep
 from exmc_tpu_torch.nuts.mass_matrix import (
@@ -185,11 +194,15 @@ def _rescue(vag_fn, q, logp, grad, metric, rescues, generator):
 
 def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
                       adapt_mass, pooled=False, rescue=False, generator=None,
-                      syncs=None):
+                      syncs=None, interweave_fn=None, freeze_mask=None,
+                      cond_metric_fn=None):
     """Run the iterations of ``xs`` (see ``_pipeline_xs``) for every
     chain. ``pooled`` merges the Welford moments across all chains at
     each window end; ``rescue`` runs the ensemble rescue at the
-    post-window checkpoints.
+    post-window checkpoints. ``interweave_fn`` runs after each
+    transition; ``freeze_mask`` (d,) re-zeroes the frozen scales'
+    inverse mass at each window end; ``cond_metric_fn(q, inv)`` gives
+    the metric of each transition and eps search.
 
     Returns (carry, draws (C, S, d), stats {name: (C, S)}) for the S
     post-warmup iterations of the segment."""
@@ -209,18 +222,24 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
         "logp": torch.empty(c, n_draws, dtype=dtype, device=dev),
         "step_size": torch.empty(c, n_draws, dtype=dtype, device=dev),
     }
+    if interweave_fn is not None:
+        stats["iw_accept"] = torch.empty(c, n_draws, dtype=dtype, device=dev)
     for it in range(len(upd)):
         warm = bool(in_warm[it])
         if rescue and resc[it]:
             q, logp, grad, metric, rescues = _rescue(
                 vag_fn, q, logp, grad, metric, rescues, generator)
+        # gibbs_scales: the frozen scales' latents get their analytic
+        # conditional inverse mass at the current scale values
+        metric_t = (metric if cond_metric_fn is None
+                    else make_metric(cond_metric_fn(q, metric.inv)))
         if search[it]:
             z = torch.randn(c, d, generator=generator, dtype=dtype, device=dev)
-            da = da_init(find_reasonable_epsilon(vag_fn, q, logp, grad, metric,
-                                                 z, syncs=syncs))
+            da = da_init(find_reasonable_epsilon(vag_fn, q, logp, grad,
+                                                 metric_t, z, syncs=syncs))
         eps = torch.exp(da.log_eps) if warm else da_finalize(da)
         q, logp, grad, st = nuts_transition(
-            vag_fn, metric, eps, q, logp, grad, max_depth, int(caps[it]),
+            vag_fn, metric_t, eps, q, logp, grad, max_depth, int(caps[it]),
             generator=generator, syncs=syncs)
         # dead-chain recovery: a non-finite accepted state re-initializes
         # near the origin during warmup. The fresh point is evaluated on
@@ -233,6 +252,15 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
             logp = keep(dead, logp_f, logp)
             grad = keep(dead, grad_f, grad)
             recoveries = recoveries + dead.to(torch.int32)
+        if interweave_fn is not None:
+            logp_pre = logp
+            q, iw_acc = interweave_fn(q, generator)
+            logp, grad = vag_fn(q)
+            # the recorded draw is the post-interweave state: shift the
+            # energy's potential term with it, so energy + logp stays the
+            # kinetic energy
+            st = dict(st, energy=st["energy"] - (logp - logp_pre))
+        if warm:
             # the dual-averaging signal stays per chain even under pooled
             # mass adaptation
             da = da_update(da, st["accept_prob"], target_accept)
@@ -242,7 +270,12 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
             wf = welford_update(wf, q, enabled)
             if win[it]:
                 wf_eff = welford_merge_across(wf) if pooled else wf
-                metric = make_metric(welford_finalize(wf_eff, metric.inv))
+                inv = welford_finalize(wf_eff, metric.inv)
+                if freeze_mask is not None:
+                    # the Gibbs legs move the frozen scales between
+                    # transitions; keep them out of the dynamics
+                    inv = inv * freeze_mask
+                metric = make_metric(inv)
                 wf = welford_init(c, d, dtype, dev)
         if not warm:
             k = int(draw_idx[it])
@@ -251,6 +284,8 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
                 stats[name][:, k] = st[name]
             stats["logp"][:, k] = logp
             stats["step_size"][:, k] = eps
+            if interweave_fn is not None:
+                stats["iw_accept"][:, k] = iw_acc
     carry = Carry(q, logp, grad, da, wf, metric, recoveries, rescues)
     return carry, draws, stats
 
@@ -275,11 +310,59 @@ class NUTSSampler:
     last_run: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        for opt, item in (("dense_mass", 5), ("shared_warmup", 9),
-                          ("interweave", 8), ("gibbs_scales", 8)):
+        if self.shared_warmup and self.pooled_adaptation:
+            raise ValueError(
+                "shared_warmup and pooled_adaptation are mutually exclusive: "
+                "shared warmup adapts on chain 0 only, pooling needs all "
+                "chains' warmup to run")
+        if self.interweave and self.shared_warmup:
+            raise ValueError("interweave requires the per-chain pipeline "
+                             "(shared_warmup=False)")
+        if self.gibbs_scales and not self.interweave:
+            raise ValueError(
+                "gibbs_scales=True requires interweave=True: frozen "
+                "scales move only via the interweave Gibbs legs")
+        if self.gibbs_scales and self.dense_mass:
+            raise ValueError(
+                "gibbs_scales is diag-metric only (freezing is an "
+                "inverse-mass zero on the scale coordinate)")
+        for opt, item in (("dense_mass", 5), ("shared_warmup", 9)):
             if getattr(self, opt):
                 raise NotImplementedError(
                     f"{opt}=True is not ported yet (ROADMAP §1 item {item})")
+        self._iw_fn = None
+        if self.interweave:
+            self._iw_fn = build_interweave(self.model)
+            if self._iw_fn is None:
+                raise ValueError(
+                    "interweave=True but no eligible NCP scale parameters "
+                    "were found (need a scalar free-RV scale referenced "
+                    "only as the NCP sigma of Normal/GRW latents; did you "
+                    "compile with ncp=False?)")
+        self._freeze_mask = None
+        self._cond_metric_fn = None
+        if self.gibbs_scales:
+            mask = np.ones(self.model.size, np.float32)
+            frozen = set()
+            for g in eligible_groups(self.model):
+                kinds = {z[2] for z in g["zs"]}
+                # freeze only scales with a sound Gibbs path: an
+                # ancillary leg or a pure obs-noise conditional
+                if g.get("anc_mode") is None and kinds != {"obs_noise"}:
+                    warnings.warn(
+                        f"gibbs_scales: scale {g['sigma_id']!r} has no "
+                        "ancillary Gibbs leg (observations unavailable "
+                        "or non-Normal) — leaving it UNFROZEN; it keeps "
+                        "mixing via NUTS + the sufficient interweave "
+                        "move", stacklevel=2)
+                    continue
+                mask[g["offset"]] = 0.0
+                frozen.add(g["offset"])
+            if frozen:
+                self._freeze_mask = torch.as_tensor(mask,
+                                                    device=self.model.device)
+                self._cond_metric_fn = build_conditional_metric(
+                    self.model, frozen_offsets=frozen)
         self._schedule = build_schedule(self.num_warmup, self.max_tree_depth)
 
     def _resolve_inits(self, init, num_chains, seed):
@@ -320,7 +403,10 @@ class NUTSSampler:
 
         q_inits = self._resolve_inits(init, num_chains, seed)
         q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
-        metric0 = make_metric(torch.ones(num_chains, d, dtype=q0.dtype, device=dev))
+        inv0 = torch.ones(num_chains, d, dtype=q0.dtype, device=dev)
+        if self._freeze_mask is not None:
+            inv0 = inv0 * self._freeze_mask
+        metric0 = make_metric(inv0)
         carry = _pipeline_init(vag, q0, logp0, grad0, metric0,
                                init_search=(self.num_warmup == 0),
                                generator=gen, syncs=syncs)
@@ -328,7 +414,9 @@ class NUTSSampler:
         carry, draws, st = _pipeline_segment(
             vag, carry, xs, self.target_accept, self.max_tree_depth,
             self.adapt_mass, pooled=self.pooled_adaptation,
-            rescue=self.ensemble_rescue, generator=gen, syncs=syncs)
+            rescue=self.ensemble_rescue, generator=gen, syncs=syncs,
+            interweave_fn=self._iw_fn, freeze_mask=self._freeze_mask,
+            cond_metric_fn=self._cond_metric_fn)
         self.last_run = {"host_syncs": syncs.count,
                          "iterations": self.num_warmup + self.num_samples}
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch import transforms as tf
+from exmc_tpu_torch.dists.base import get as get_dist
 from exmc_tpu_torch.ir import IR, free_rv_nodes
 
 
@@ -27,9 +28,12 @@ class Entry:
 
 def _infer_shape(node):
     """Event shape: declared node.shape, else broadcast of the constant
-    array params, else scalar."""
+    array params, else scalar. A GaussianRandomWalk must declare it."""
     if node.shape is not None:
         return tuple(node.shape)
+    if get_dist(node.op[1]).name == "gaussian_random_walk":
+        raise ValueError(
+            f"GaussianRandomWalk RV {node.id!r} requires an explicit shape")
     params = node.op[2]
     shapes = [
         np.asarray(v).shape
