@@ -23,7 +23,15 @@ Phases, each printing one JSON line:
                (finite draws, split R-hat, divergence rate, posterior
                means against the JAX package's), with the interweave step
                and conditional metric run once under CUDA's sync check;
-  6. kernels — one JSON object with every kernel's numbers.
+  6. golds   — the 46 non-Stan gold standards of the JAX package's
+               validation battery (exmc_tpu_torch/benchmarks), each
+               compiled on the card and held against the CPU at 8 points,
+               sampled under the card recipe at full width and held to the
+               battery's criterion, max split R-hat and finite draws; run
+               by GOLD_WORKERS worker processes, one JSON line per gold and
+               a summary line; a gold that fails only under the card recipe
+               is run again at the JAX battery's recipe;
+  7. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
 """
@@ -32,6 +40,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,7 +48,7 @@ import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
-from exmc_tpu_torch.benchmarks import suite
+from exmc_tpu_torch.benchmarks import suite, validation
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -61,6 +70,11 @@ TOL_LOGP_REL = 1e-5
 # gates are stated for, and it keeps the script within half its time
 # limit on one card (PERF.md, "Suite on the card").
 SUITE_ITERS = (150, 150)
+
+# Gold phase: worker processes sharing the card (the work is host-bound:
+# one sync per tree leaf), each taking a share of the golds balanced by
+# their measured cost (validation.CARD_COST_S).
+GOLD_WORKERS = 4
 
 
 def emit(obj):
@@ -212,6 +226,67 @@ def phase_suite():
     return launches
 
 
+def phase_golds():
+    """The 46 golds in GOLD_WORKERS processes; a gold that fails under the
+    card recipe is run again here at the JAX battery's recipe. Returns the
+    fused-leapfrog kernel's launches in the phase (read from each
+    worker's counter around its run)."""
+    t0 = time.perf_counter()
+    outs = [tempfile.TemporaryFile(mode="w+") for _ in range(GOLD_WORKERS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "exmc_tpu_torch.benchmarks.validation",
+         "--check-compile", "--shard", f"{k}/{GOLD_WORKERS}"],
+        stdout=out, text=True) for k, out in enumerate(outs)]
+    results, launches = [], 0
+    try:
+        for k, (proc, out) in enumerate(zip(procs, outs)):
+            if proc.wait(timeout=900) != 0:
+                fail(f"golds: worker {k} exited {proc.returncode}")
+            out.seek(0)
+            for line in out:
+                obj = json.loads(line)
+                if "model" in obj:
+                    results.append(obj)
+                    # the per-parameter detail of a 1000-long path is not
+                    # printed; worst_mean_use and sd_ratio_range sum it up
+                    emit({"phase": "golds",
+                          **{k2: v for k2, v in obj.items() if k2 != "params"}})
+                else:
+                    launches += obj["fused_leapfrog_gaussian_launches"]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    failures, rerun = [], []
+    for res in results:
+        if res["compile_check"]["ok"] and res["gates_pass"]:
+            continue
+        if not res["compile_check"]["ok"]:
+            failures.append(f"{res['model']}: compiled model differs from the CPU")
+            continue
+        gs = validation.build_golds([res["model"]])[res["model"]]
+        fused_leapfrog_gaussian.launches = 0
+        again = validation.run_gold(gs, device="cuda", **validation.JAX_RECIPE)
+        launches += fused_leapfrog_gaussian.launches
+        emit({"phase": "golds", "recipe": "jax",
+              **{k: v for k, v in again.items() if k != "params"}})
+        rerun.append(res["model"])
+        if not again["gates_pass"]:
+            failures.append(f"{res['model']}: {', '.join(again['gate_failures'])}")
+    n = len(results)
+    emit({"phase": "golds_summary", "n_pass": n - len(failures), "n": n,
+          "seconds": time.perf_counter() - t0, "workers": GOLD_WORKERS,
+          "card_recipe": validation.CARD_RECIPE,
+          "card_overrides": validation.CARD_OVERRIDES,
+          "rerun_at_jax_recipe": rerun,
+          "fused_leapfrog_gaussian_launches": launches})
+    if n != 46:
+        fail(f"golds: {n} results, expected 46")
+    if failures:
+        fail("golds: " + " | ".join(failures))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="exmc_tpu_torch smoke run on one card")
     ap.add_argument("--warmup", type=int, default=200,
@@ -242,6 +317,7 @@ def main(argv=None):
              f"expected {len(OPS_SHAPES)}")
     main_launches = phase_main(args.warmup, args.draws)
     suite_launches = phase_suite()
+    gold_launches = phase_golds()
 
     big = rows[-1]
     print(smi, flush=True)
@@ -255,6 +331,7 @@ def main(argv=None):
                          f"{len(OPS_SHAPES)} shapes",
         "main_path_launches": main_launches["fused_leapfrog_gaussian"],
         "suite_path_launches": suite_launches["fused_leapfrog_gaussian"],
+        "gold_path_launches": gold_launches,
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

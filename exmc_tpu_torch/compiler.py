@@ -1,5 +1,5 @@
 """Compile a model IR into one batched, differentiable log-density
-(``exmc_tpu/compiler.py:193-475,499-508``).
+(``exmc_tpu/compiler.py``).
 
 Where the JAX package compiles ``logp(flat) -> scalar`` and vmaps it
 over chains, the port evaluates a (C, d) batch of flat points at once:
@@ -12,14 +12,21 @@ row i of that gradient is exactly chain i's gradient. On the card the
 value-and-grad is replayed from a CUDA graph per batch shape
 (``GraphedValueAndGrad``).
 
+Before a distribution sees its value and parameters they are aligned on
+their batch axes (``_align_dist``): each tensor keeps its own trailing
+event axes (a Categorical's probabilities, an MvNormal's factor), and
+the axes between the chain axis and those broadcast right-aligned, as
+they do for one point in JAX. Det ops that are not elementwise
+(``matmul``, ``dot``, ``getitem``, ``smul``, ``cumsum``, ``stack``,
+``concat``) act on the event axes and take their operands unaligned.
+
 Non-centered latents are rebuilt as ``mu + sigma * z``, and a
 GaussianRandomWalk latent as ``sigma * cumsum(z)``, with ``z = V w``
 when the rewrite made it spectral (``_grw_spectral_basis``).
-
-Not ported yet, and refused when the model is compiled: censored
-observations, measurable-lifted observations (``meas_obs``), keyed data
-references, the pointwise log-likelihood and ``partial_logp``
-(ROADMAP §1 items 3 and 10).
+Observations may be censored (``Censored``), measurable-lifted
+(``meas_obs``: the matmul and affine Jacobians), or read from the data
+registered with ``Builder.data``, whole (``"__obs_data"``) or keyed
+(``("__obs_data", key)``).
 """
 
 from dataclasses import dataclass
@@ -33,6 +40,7 @@ from exmc_tpu_torch import rewrite
 from exmc_tpu_torch import transforms as tf
 from exmc_tpu_torch.config import default_dtype, prepare_device
 from exmc_tpu_torch.dists.base import get as get_dist
+from exmc_tpu_torch.dists.composite import CENSORED
 from exmc_tpu_torch.ir import IR
 from exmc_tpu_torch.point_map import PointMap
 
@@ -65,10 +73,41 @@ def _matmul(a, x):
     return torch.matmul(a, x)
 
 
+def _smul(a, b):
+    """Stan's ``*``: a matrix product when the left operand is a matrix
+    (two event axes), else elementwise."""
+    if a.ndim == 3:
+        return _matmul(a, b)
+    return torch.mul(*_align([a, b]))
+
+
+def _getitem(v, idx):
+    """``v[idx]`` of one point, per chain: ``idx`` (a constant integer
+    tensor) indexes the first event axis."""
+    return v[:, idx]
+
+
+def _cumsum(x):
+    if x.ndim < 2:
+        raise ValueError("det op 'cumsum' needs a vector-valued argument")
+    return torch.cumsum(x, dim=-1)
+
+
+def _stack(*xs):
+    """``stack(xs)`` of one point: a new first event axis."""
+    xs = [x if x.ndim else x.reshape(1) for x in xs]
+    return torch.stack(torch.broadcast_tensors(*_align(xs)), dim=1)
+
+
+def _concat(*xs):
+    """``concatenate(xs)`` of one point, along the first event axis."""
+    xs = _align(list(xs))
+    c = max(x.shape[0] for x in xs)
+    return torch.cat([x.expand((c,) + x.shape[1:]) for x in xs], dim=1)
+
+
 # Deterministic-node ops that act elementwise (or reduce over the event
 # axes) on batched values: their arguments are aligned first (``_align``).
-# The JAX table's dot/getitem/smul/cumsum/stack/concat wait for the
-# models that need them (ROADMAP §1).
 DET_OPS = {
     "add": lambda a, b: a + b,
     "sub": lambda a, b: a - b,
@@ -88,7 +127,15 @@ DET_OPS = {
 }
 
 # Det ops over the event axes as a whole, given their arguments unaligned.
-UNALIGNED_DET_OPS = {"matmul": _matmul}
+UNALIGNED_DET_OPS = {
+    "matmul": _matmul,
+    "dot": _matmul,
+    "getitem": _getitem,
+    "smul": _smul,
+    "cumsum": _cumsum,
+    "stack": _stack,
+    "concat": _concat,
+}
 
 
 def _grw_spectral_basis(t):
@@ -136,10 +183,81 @@ def _align(vals):
     ]
 
 
-def _align_dict(x, params):
-    keys = list(params)
-    vals = _align([x] + [params[k] for k in keys])
-    return vals[0], dict(zip(keys, vals[1:]))
+def _align_batch(leaves):
+    """``leaves``: (tensor, event_dims) pairs. Insert unit axes after the
+    chain axis so every tensor has the same number of batch axes (those
+    between the chain axis and its own event axes). 0-d tensors are
+    scalars and broadcast anywhere."""
+    nb = max((t.ndim - 1 - k for t, k in leaves
+              if isinstance(t, torch.Tensor) and t.ndim > 0), default=0)
+    out = []
+    for t, k in leaves:
+        if isinstance(t, torch.Tensor) and t.ndim > 0 and t.ndim - 1 - k < nb:
+            t = t.reshape(t.shape[:1] + (1,) * (nb - (t.ndim - 1 - k)) + t.shape[1:])
+        out.append(t)
+    return out
+
+
+def _align_dist(dist, value, params):
+    """(value, params) aligned on their batch axes for ``dist.logpdf``,
+    each keeping the event axes the distribution declares for it
+    (``value_event_dims``, ``param_event_dims``); a Mixture's component
+    parameters use their component's declaration. ``value`` may be a
+    dict (interval censoring)."""
+    leaves = []
+
+    def leaf(t, k):
+        leaves.append((t, k))
+        return len(leaves) - 1
+
+    vk = dist.value_event_dims
+    if dist.name == "mixture":
+        vk = get_dist(params["components"][0]).value_event_dims
+    vspec = ({n: leaf(v, vk) for n, v in value.items()}
+             if isinstance(value, dict) else leaf(value, vk))
+    pspec = {}
+    for k, v in params.items():
+        if k in ("components", "__data__"):
+            pspec[k] = v
+        elif k == "params" and dist.name == "mixture":
+            comps = [get_dist(c) for c in params["components"]]
+            pspec[k] = [{kk: leaf(vv, c.param_event_dims.get(kk, 0))
+                         for kk, vv in p.items()} for c, p in zip(comps, v)]
+        elif isinstance(v, dict):
+            pspec[k] = {kk: leaf(vv, 0) for kk, vv in v.items()}
+        else:
+            pspec[k] = leaf(v, dist.param_event_dims.get(k, 0))
+    out = _align_batch(leaves)
+
+    def get(spec):
+        if isinstance(spec, int):
+            return out[spec]
+        if isinstance(spec, dict):
+            return {k: get(v) for k, v in spec.items()}
+        return [get(v) for v in spec]
+
+    value = get(vspec)
+    params = {k: (v if k in ("components", "__data__") else get(v))
+              for k, v in pspec.items()}
+    return value, params
+
+
+def _map_params(params, fn):
+    """``fn`` applied to every value of an rv's params: at compile time
+    it turns constants into device tensors, per call it resolves
+    references. A Mixture's component list stays; its component params
+    recurse."""
+    out = {}
+    for k, v in params.items():
+        if k == "components":
+            out[k] = v
+        elif k == "params" and isinstance(v, (list, tuple)):
+            out[k] = [_map_params(p, fn) for p in v]
+        elif isinstance(v, dict):
+            out[k] = {kk: fn(vv) for kk, vv in v.items()}
+        else:
+            out[k] = fn(v)
+    return out
 
 
 def _const(value, device):
@@ -150,6 +268,14 @@ def _const(value, device):
     t = torch.as_tensor(arr.astype(np.bool_ if dtype == torch.bool else np.float32),
                         device=device)
     return t if t.ndim == 0 else t.unsqueeze(0)
+
+
+def _base_data(data):
+    """The value plain "__obs_data" refs see: with keyed data the
+    model's own data rides the reserved "__base" key."""
+    if isinstance(data, dict) and "__base" in data:
+        return data["__base"]
+    return data
 
 
 @dataclass
@@ -182,33 +308,37 @@ class _Graph:
     def __init__(self, ir: IR, pm: PointMap, device, data=None):
         self.ir = ir
         self.free_ids = {e.id for e in pm.entries}
-        self.data = None if data is None else _const(data, device)
         prep = self._prep_factory(device)
+        if isinstance(data, dict):
+            self.data = {k: prep(v) for k, v in data.items()}
+        else:
+            self.data = None if data is None else _const(data, device)
         self.params, self.args, self.values, self.meta = {}, {}, {}, {}
+        self.meas = {}
+        # False when an op without a CUDA-graph form runs per call (a
+        # factorization of a sampled matrix): then the card runs eager
+        self.capturable = True
         for nid, node in ir.nodes.items():
             tag = node.op[0]
             if tag == "rv":
-                self.params[nid] = {k: prep(v) for k, v in node.op[2].items()}
+                dist = get_dist(node.op[1])
+                dist.validate_ir_params(node.op[2])
+                if dist.name == "mv_normal" and isinstance(node.op[2].get("cov"), str):
+                    self.capturable = False
+                self.params[nid] = dist.prepare_params(_map_params(node.op[2], prep))
             elif tag == "det":
                 fn = node.op[1]
                 if isinstance(fn, str) and fn not in DET_OPS and (
                         fn not in UNALIGNED_DET_OPS):
-                    raise NotImplementedError(
-                        f"det op {fn!r} of node {nid!r} is not ported yet "
-                        "(ROADMAP §1 item 15)")
-                self.args[nid] = [prep(a) for a in node.op[2]]
-            elif tag == "obs":
-                _, _, value, meta = node.op
-                if meta.get("censored") is not None:
-                    raise NotImplementedError(
-                        f"censored observation {nid!r} is not ported yet "
-                        "(ROADMAP §1 item 3)")
-                if isinstance(value, (dict, tuple)) or (
-                        isinstance(value, str) and value != OBS_DATA_KEY):
-                    raise NotImplementedError(
-                        f"observation {nid!r}: only array values and "
-                        f"{OBS_DATA_KEY!r} are ported (ROADMAP §1 item 3)")
-                self.values[nid] = prep(value)
+                    raise ValueError(f"unknown det op {fn!r} of node {nid!r}")
+                args = [prep(a) for a in node.op[2]]
+                if fn == "getitem":
+                    args[1] = torch.as_tensor(np.asarray(node.op[2][1]),
+                                              dtype=torch.long, device=device)
+                self.args[nid] = args
+            elif tag in ("obs", "meas_obs"):
+                value, meta = node.op[2], node.op[-1]
+                self.values[nid] = self._prep_value(value, prep)
                 weight = meta.get("weight", 1.0)
                 mask = meta.get("mask")
                 self.meta[nid] = {
@@ -217,11 +347,10 @@ class _Graph:
                     "mask": None if mask is None else _const(
                         np.asarray(mask, dtype=bool), device),
                     "reduce": meta.get("reduce"),
+                    "censored": meta.get("censored"),
                 }
-            elif tag == "meas_obs":
-                raise NotImplementedError(
-                    f"measurable observation {nid!r} is not ported yet "
-                    "(ROADMAP §1 item 3)")
+                if tag == "meas_obs":
+                    self.meas[nid] = self._prep_meas(nid, node.op[3], prep)
         # mu/sigma become device tensors; "kind"/"spectral" stay flags
         self.ncp = {
             nid: {k: prep(v) if k in ("mu", "sigma") else v
@@ -235,11 +364,48 @@ class _Graph:
             for nid, info in ir.ncp_info.items() if info.get("spectral")
         }
 
+    def _prep_meas(self, nid, op_info, prep):
+        """A measurable lift's operands; a matmul lift of a constant
+        matrix against a constant value is solved here, once."""
+        kind = op_info[0]
+        if kind == "affine":
+            return ("affine",) + tuple(prep(a) for a in op_info[1:])
+        if kind != "matmul":
+            raise ValueError(f"unknown measurable op: {kind!r}")
+        a = prep(op_info[1])
+        if isinstance(a, str) or self.values[nid][0] != "const":
+            self.capturable = False
+            return ("matmul", a)
+        x, jac = _solve_lift(a, self.values[nid][1])
+        return ("solved", x, jac)
+
     @staticmethod
     def _prep_factory(device):
         def prep(v):
             return v if isinstance(v, str) else _const(v, device)
         return prep
+
+    @staticmethod
+    def _prep_value(value, prep):
+        """An observation's value: the data (whole or keyed), an interval
+        dict, or a constant."""
+        if isinstance(value, str):
+            if value != OBS_DATA_KEY:
+                raise ValueError(f"bad obs value ref: {value!r}")
+            return ("data", None)
+        if isinstance(value, tuple) and len(value) == 2 and value[0] == OBS_DATA_KEY:
+            return ("keyed", value[1])
+        if isinstance(value, dict):
+            return ("dict", {k: prep(v) for k, v in value.items()})
+        return ("const", prep(value))
+
+    def value(self, nid):
+        kind, v = self.values[nid]
+        if kind == "data":
+            return _base_data(self.data)
+        if kind == "keyed":
+            return self.data[v]
+        return v
 
     def resolver(self, zmap):
         """Constrained-value resolver with memoization, applying NCP
@@ -252,7 +418,7 @@ class _Graph:
 
         def resolve(ref):
             if ref == OBS_DATA_KEY:
-                return self.data
+                return _base_data(self.data)
             if ref in memo:
                 return memo[ref]
             node = ir.get_node(ref)
@@ -296,32 +462,86 @@ class _Graph:
         t = tf.get(transform)
         z = zmap[node.id]
         x = t.forward(z)
-        params = {k: val(v) for k, v in self.params[node.id].items()}
-        x, params = _align_dict(x, params)
+        params = _map_params(self.params[node.id], val)
+        if dist.name == "custom":
+            params["__data__"] = val(OBS_DATA_KEY)
+        x, params = _align_dist(dist, x, params)
         return xm.event_sum(dist.logpdf(x, params)) + t.log_abs_det_jacobian(z)
 
-    def obs_term(self, node, val):
-        """Observation log-likelihood with weight -> mask -> reduce."""
-        target = self.ir.get_node(node.op[1])
-        dist = get_dist(target.op[1])
-        params = {k: val(v) for k, v in self.params[target.id].items()}
-        value, params = _align_dict(val(self.values[node.id]), params)
-        lp = dist.logpdf(value, params)
-        meta = self.meta[node.id]
+    def apply_obs_meta(self, lp, meta, reduce=True):
+        """weight -> mask -> reduce, in that order."""
         if meta["weight"] is not None:
             lp, w = _align([lp, meta["weight"]])
             lp = lp * w
         if meta["mask"] is not None:
             lp, m = _align([lp, meta["mask"]])
             lp = torch.where(m, lp, torch.zeros_like(lp))
+        if not reduce:
+            return lp
+        if meta["reduce"] == "sum":
+            return xm.event_sum(lp)
         if meta["reduce"] == "mean":
             return _event_mean(lp)
         if meta["reduce"] == "logsumexp":
             return _event_logsumexp(lp)
         return lp
 
+    def _target(self, node, val):
+        target = self.ir.get_node(node.op[1])
+        dist = get_dist(target.op[1])
+        return dist, _map_params(self.params[target.id], val)
 
-def _make_logp(graph: _Graph, pm: PointMap):
+    def obs_term(self, node, val, reduce=True):
+        """Observation log-likelihood (censored or not) with its meta."""
+        dist, params = self._target(node, val)
+        if dist.name == "custom":
+            params["__data__"] = self.data
+        meta = self.meta[node.id]
+        value, params = _align_dist(dist, self.value(node.id), params)
+        if meta["censored"] is not None:
+            lp = CENSORED.log_likelihood(meta["censored"], value, dist, params)
+        else:
+            lp = dist.logpdf(value, params)
+        return self.apply_obs_meta(lp, meta, reduce)
+
+    def meas_obs_term(self, node, val):
+        """Measurable-lifted observation with its change-of-measure
+        Jacobian: x = A^-1 y (matmul) or (y - b) / a (affine)."""
+        dist, params = self._target(node, val)
+        value = self.value(node.id)
+        kind, *args = self.meas[node.id]
+        if kind == "solved":
+            x, meas_jac = args
+        elif kind == "matmul":
+            x, meas_jac = _solve_lift(val(args[0]), value)
+        else:
+            a, b = (val(v) for v in args)
+            value_a, b_a, a_a = _align([value, b, a])
+            x = (value_a - b_a) / a_a
+            meas_jac = -xm.event_sum(torch.log(torch.abs(a)))
+        x, params = _align_dist(dist, x, params)
+        lp, jac = _align([self.apply_obs_meta(dist.logpdf(x, params),
+                                              self.meta[node.id]), meas_jac])
+        return lp + jac
+
+
+def _solve_lift(a, value):
+    """x = A^-1 y and the Jacobian -log|det A| of a matmul lift."""
+    if value.ndim - 1 == 1:
+        x = torch.linalg.solve(a, value.unsqueeze(-1)).squeeze(-1)
+    else:
+        x = torch.linalg.solve(a, value)
+    return x, -torch.log(torch.abs(torch.linalg.det(a)))
+
+
+def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
+               part: str = "all"):
+    """``part``: "all", "prior" (the free RVs' terms: a normalized density
+    in unconstrained space) or "likelihood" (the obs/meas_obs terms);
+    prior + likelihood == all, term by term. ``pointwise`` returns
+    {obs_id: per-datapoint log-likelihood (C, ...)}, obs not reduced."""
+    if part not in ("all", "prior", "likelihood"):
+        raise ValueError(f"part must be all|prior|likelihood, got {part!r}")
     ir = graph.ir
     node_ids = sorted(ir.nodes)  # deterministic term order
 
@@ -329,14 +549,27 @@ def _make_logp(graph: _Graph, pm: PointMap):
         zmap = pm.unpack(flat)
         _, val = graph.resolver(zmap)
         total = flat.new_zeros(flat.shape[:1])
+        terms = {}
         for nid in node_ids:
             node = ir.nodes[nid]
             tag = node.op[0]
-            if tag == "rv" and nid in graph.free_ids:
-                total = total + graph.rv_prior_term(node, zmap, val)
-            elif tag == "obs" and node.op[-1].get("likelihood", True) is not False:
-                total = total + xm.event_sum(graph.obs_term(node, val))
-        return total
+            if tag in ("obs", "meas_obs"):
+                if part == "prior" or node.op[-1].get("likelihood", True) is False:
+                    continue
+                if tag == "obs":
+                    term = graph.obs_term(node, val, reduce=not pointwise)
+                else:
+                    term = graph.meas_obs_term(node, val)
+            elif (tag == "rv" and nid in graph.free_ids and part != "likelihood"
+                  and not pointwise):
+                term = graph.rv_prior_term(node, zmap, val)
+            else:
+                continue
+            if pointwise:
+                terms[nid] = term
+            else:
+                total = total + xm.event_sum(term)
+        return terms if pointwise else total
 
     return logp
 
@@ -402,10 +635,28 @@ def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
     pm = PointMap.build(rw)
     graph = _Graph(rw, pm, dev, rw.data)
     logp = _make_logp(graph, pm)
+    vag = _make_value_and_grad(logp)
     return CompiledModel(ir=rw, pm=pm, ncp_info=rw.ncp_info, logp=logp,
-                         value_and_grad=GraphedValueAndGrad(
-                             _make_value_and_grad(logp)),
+                         value_and_grad=(GraphedValueAndGrad(vag)
+                                         if graph.capturable else vag),
                          device=dev, data=rw.data)
+
+
+def partial_logp(model: CompiledModel, part: str) -> Callable:
+    """Prior-only or likelihood-only log-density, (C, d) -> (C,), on the
+    same PointMap and rewritten IR as ``model.logp``: the two parts sum
+    to the full log-density at every flat point."""
+    graph = _Graph(model.ir, model.pm, model.device, model.data)
+    return _make_logp(graph, model.pm, part=part)
+
+
+def compile_pointwise(ir: IR, *, ncp: bool = True, device=None) -> Callable:
+    """Pointwise log-likelihood for WAIC/LOO: (C, d) flat ->
+    {obs_id: (C, ...) per-observation log-likelihood}."""
+    dev = prepare_device(device)
+    rw = rewrite.apply(ir, ncp=ncp)
+    pm = PointMap.build(rw)
+    return _make_logp(_Graph(rw, pm, dev, rw.data), pm, pointwise=True)
 
 
 def constrain_flat(ir: IR, pm: PointMap, flat, data=None) -> dict:

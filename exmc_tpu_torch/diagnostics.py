@@ -1,14 +1,17 @@
-"""MCMC diagnostics (``exmc_tpu/diagnostics.py:26-189``): ``ess`` (Geyer
-initial positive/monotone sequence over an FFT autocovariance), split
-``rhat`` and ``nested_rhat``.
+"""MCMC diagnostics (``exmc_tpu/diagnostics.py``): ``ess`` (Geyer
+initial positive/monotone sequence over an FFT autocovariance),
+``ess_bulk``/``ess_tail`` and ``rhat_bulk`` (Blom rank-normalized, ties
+at their average rank), split ``rhat``, ``nested_rhat``, ``ebfmi``,
+``autocorrelation``, ``quantile`` and ``summary``.
 
 Inputs are (chains, draws) arrays or tensors; numpy input is computed on
-the CPU in its own dtype. Bulk/tail ESS, E-BFMI and ``summary`` are not
-ported yet (ROADMAP §1 item 4).
+the CPU in its own dtype. Between-chain variances are centered two-pass
+(``torch.var``).
 """
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -68,6 +71,36 @@ def ess(x):
     return c * n / _geyer_tau(pair, n)
 
 
+def _rank_normalize(x):
+    """Blom rank-normalization + probit over all draws; ties get their
+    average rank."""
+    x = torch.as_tensor(x)
+    flat = x.reshape(-1).contiguous()
+    n = flat.shape[0]
+    sorted_x = torch.sort(flat).values
+    left = torch.searchsorted(sorted_x, flat, right=False)
+    right = torch.searchsorted(sorted_x, flat, right=True)
+    ranks = 0.5 * (left + right + 1.0).to(x.dtype)
+    u = (ranks - 0.375) / (n + 0.25)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+    return z.reshape(x.shape)
+
+
+def ess_bulk(x):
+    """Bulk ESS: rank-normalized split-chain ESS."""
+    return ess(_split_chains(_rank_normalize(_as_2d(x))))
+
+
+def ess_tail(x, prob=0.05):
+    """Tail ESS: the smaller ESS of the prob and 1 - prob quantile
+    indicators."""
+    x = _as_2d(x)
+    lo, hi = quantile(x, [prob, 1.0 - prob])
+    e_lo = ess(_split_chains(_rank_normalize((x <= lo).to(x.dtype))))
+    e_hi = ess(_split_chains(_rank_normalize((x <= hi).to(x.dtype))))
+    return torch.minimum(e_lo, e_hi)
+
+
 def rhat(x):
     """Split-chain R-hat. x: (chains, draws)."""
     s = _split_chains(_as_2d(x))
@@ -76,6 +109,11 @@ def rhat(x):
     b = n * _var(s.mean(dim=1), 0)
     var_plus = (n - 1) / n * w + b / n
     return torch.sqrt(var_plus / torch.clamp_min(w, 1e-30))
+
+
+def rhat_bulk(x):
+    """Rank-normalized split R-hat."""
+    return rhat(_rank_normalize(_as_2d(x)))
 
 
 def nested_rhat(x, num_superchains):
@@ -107,3 +145,53 @@ def nested_rhat(x, num_superchains):
     b = _var(super_means, 0)
     w = (_var(chain_means, 1) + within_chain).mean()
     return torch.sqrt(1.0 + b / torch.clamp_min(w, 1e-30))
+
+
+def ebfmi(energy):
+    """Energy Bayesian fraction of missing information per chain
+    (Betancourt 2016): mean(diff(E)^2) / var(E). ``energy``: (chains,
+    draws), e.g. ``stats["energy"]``; returns (chains,)."""
+    e = _as_2d(energy)
+    de = torch.diff(e, dim=1)
+    return (de * de).mean(dim=1) / _var(e, 1)
+
+
+def autocorrelation(x, max_lag=None):
+    """Normalized autocorrelation per chain (FFT)."""
+    acov = autocovariance(torch.as_tensor(x))
+    acf = acov / torch.clamp_min(acov[..., :1], 1e-30)
+    return acf if max_lag is None else acf[..., : max_lag + 1]
+
+
+def quantile(x, qs):
+    """Quantiles of all draws by sorted linear interpolation (numpy's and
+    JAX's default "linear" method)."""
+    flat = torch.sort(torch.as_tensor(x).reshape(-1)).values
+    q = torch.as_tensor(qs, dtype=flat.dtype, device=flat.device)
+    pos = q * (flat.shape[0] - 1)
+    lo = torch.floor(pos).long()
+    hi = torch.clamp_max(lo + 1, flat.shape[0] - 1)
+    return flat[lo] + (flat[hi] - flat[lo]) * (pos - lo.to(flat.dtype))
+
+
+def summary(trace, var_names=None):
+    """Per-parameter table: mean, std, q5/q25/q50/q75/q95, ess,
+    ess_bulk, ess_tail, rhat and mcse_mean = std / sqrt(ess).
+    ``trace``: {name: (chains, draws, *event)}; a vector parameter is
+    summarized per flattened component ``name[i]``."""
+    out = {}
+    for name in (var_names if var_names is not None else sorted(trace)):
+        arr = torch.as_tensor(np.asarray(trace[name]))
+        c, n = arr.shape[0], arr.shape[1]
+        flat_ev = arr.reshape(c, n, -1)
+        for i in range(flat_ev.shape[-1]):
+            x = flat_ev[:, :, i]
+            key = name if flat_ev.shape[-1] == 1 else f"{name}[{i}]"
+            qs = quantile(x, [0.05, 0.25, 0.5, 0.75, 0.95])
+            row = {"mean": float(x.mean()), "std": float(torch.std(x, correction=1))}
+            row.update({f"q{p}": float(v) for p, v in zip((5, 25, 50, 75, 95), qs)})
+            row.update(ess=float(ess(x)), ess_bulk=float(ess_bulk(x)),
+                       ess_tail=float(ess_tail(x)), rhat=float(rhat(x)))
+            row["mcse_mean"] = row["std"] / max(row["ess"], 1.0) ** 0.5
+            out[key] = row
+    return out

@@ -3,6 +3,7 @@
 import torch
 
 from exmc_tpu_torch import math as xm
+from exmc_tpu_torch.dists import _sampling as rs
 from exmc_tpu_torch.dists.base import Distribution, register
 
 
@@ -21,6 +22,10 @@ class GaussianRandomWalk(Distribution):
         z = increments / sigma
         return torch.sum(-0.5 * z * z - torch.log(sigma) - xm.LOG_SQRT_2PI,
                          dim=-1)
+
+    def sample(self, params, shape, generator):
+        shape = tuple(shape) if shape else (int(params["steps"]),)
+        return torch.cumsum(params["sigma"] * rs.randn(shape, generator), dim=-1)
 
 
 GAUSSIAN_RANDOM_WALK = register(GaussianRandomWalk())

@@ -4,7 +4,12 @@ A PPL has no weights: what crosses over is the model (its IR) and the
 tuning a run produced. Both work on plain data, so this module imports
 nothing of the JAX package: ``ir_from_reference`` reads the reference
 IR by duck typing (nodes with ``id``/``op``/``deps``/``shape``;
-distributions and transforms by their ``.name``).
+distributions and transforms by their ``.name``, a bounded transform
+with its bounds). Every distribution and transform, the obs metadata
+(censoring, reduce, weight, mask) and ``meas_obs`` carry over. A
+callable det node or a ``Custom`` distribution does not: a JAX
+callable cannot run on torch tensors, and the IR is refused with an
+error naming the node.
 """
 
 import numpy as np
@@ -32,16 +37,46 @@ def _plain(v):
 def _transform(t):
     if t is None or isinstance(t, str):
         return t
+    if t.name in tf.BOUNDED:
+        bounds = {"interval": ("lower", "upper"), "lower_bound": ("lower",),
+                  "upper_bound": ("upper",)}[t.name]
+        return tf.BOUNDED[t.name](*(float(getattr(t, b)) for b in bounds))
     return tf.get(t.name)
 
 
-def _op(op):
+def _dist(d, nid):
+    name = d if isinstance(d, str) else d.name
+    if name == "custom":
+        raise ValueError(
+            f"node {nid!r}: a Custom distribution holds a JAX callable, which "
+            "cannot be carried over; build it with exmc_tpu_torch.dists.Custom "
+            "and a torch logpdf")
+    return get_dist(name)
+
+
+def _params(params, nid):
+    out = {}
+    for k, v in params.items():
+        if k == "components":
+            out[k] = [_dist(c, nid) for c in v]
+        elif k == "params" and isinstance(v, (list, tuple)):
+            out[k] = [_params(p, nid) for p in v]
+        else:
+            out[k] = _plain(v)
+    return out
+
+
+def _op(op, nid):
     tag = op[0]
     if tag == "rv":
-        out = ("rv", get_dist(op[1].name if hasattr(op[1], "name") else op[1]),
-               _plain(op[2]))
+        out = ("rv", _dist(op[1], nid), _params(op[2], nid))
         return out + (_transform(op[3]),) if len(op) == 4 else out
     if tag == "det":
+        if not isinstance(op[1], str):
+            raise ValueError(
+                f"det node {nid!r} holds a callable, which cannot be carried "
+                "over from the JAX package; use a named det op or rebuild the "
+                "node with a torch callable")
         return ("det", op[1], _plain(op[2]))
     return (tag,) + tuple(_plain(x) for x in op[1:])
 
@@ -51,20 +86,26 @@ def ir_from_reference(ir) -> IR:
     node ids, ops, deps, shapes and NCP info, with each distribution
     mapped by name to the port's registry and arrays as numpy."""
     nodes = {
-        nid: Node(id=n.id, op=_op(n.op), deps=tuple(n.deps),
+        nid: Node(id=n.id, op=_op(n.op, nid), deps=tuple(n.deps),
                   shape=None if n.shape is None else tuple(n.shape),
                   dtype=n.dtype)
         for nid, n in ir.nodes.items()
     }
     return IR(nodes=nodes, outputs=tuple(ir.outputs),
               ncp_info=_plain(dict(ir.ncp_info)),
-              data=None if ir.data is None else np.asarray(ir.data))
+              data=_plain(ir.data))
 
 
-def tuning_from_numpy(step_size, inv_mass, device=None):
+def tuning_from_numpy(step_size, inv_mass, device=None, dense=None):
     """(eps (C,), Metric) from the numpy ``stats["step_size"]`` (C,) and
-    ``stats["inv_mass"]`` (C, d) of a JAX-package run, on ``device``."""
+    ``stats["inv_mass"]`` of a JAX-package run, on ``device``: (C, d)
+    diagonal, or dense as (C, d, d), or one (d, d) matrix with
+    ``dense=True`` (shared by every chain)."""
     dev = prepare_device(device)
     eps = torch.as_tensor(np.asarray(step_size, np.float32), device=dev)
     inv = torch.as_tensor(np.asarray(inv_mass, np.float32), device=dev)
-    return eps, make_metric(inv)
+    if dense is None:
+        dense = inv.ndim == 3
+    if dense and inv.ndim == 2:
+        inv = inv.expand(eps.shape[0], -1, -1).contiguous()
+    return eps, make_metric(inv, dense=dense)

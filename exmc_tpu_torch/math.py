@@ -1,6 +1,4 @@
-"""Differentiable special-function helpers (the part of
-``exmc_tpu/math.py`` that the ported distributions, transforms and the
-interweave step use)."""
+"""Differentiable special-function helpers (``exmc_tpu/math.py``)."""
 
 import math
 
@@ -18,6 +16,11 @@ def lgamma(x):
     return torch.lgamma(x)
 
 
+def lbeta(a, b):
+    """log B(a, b) = lgamma(a) + lgamma(b) - lgamma(a + b)."""
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
 def ndtr(x):
     """Standard normal CDF in the formula of ``jax.scipy.special.ndtr``:
     erf near 0, erfc in both tails, so the lower tail keeps its relative
@@ -28,6 +31,21 @@ def ndtr(x):
                     torch.where(w > 0.0, 2.0 - torch.erfc(z), torch.erfc(z)))
     return 0.5 * y
 
+
+def normal_cdf(z):
+    """Phi(z); the erf/erfc ``ndtr`` above (``torch.special.ndtr`` loses
+    the lower tail in float32)."""
+    return ndtr(z)
+
+
+def log_normal_cdf(z):
+    """log Phi(z), stable in the deep lower tail."""
+    return torch.special.log_ndtr(z)
+
+
+def log_normal_sf(z):
+    """log(1 - Phi(z)) = log Phi(-z)."""
+    return torch.special.log_ndtr(-z)
 
 
 def floor_scale(sigma):
@@ -50,6 +68,10 @@ def event_sum(x):
 
 def logsumexp(x, dim):
     return torch.logsumexp(x, dim=dim)
+
+
+def logit(p):
+    return torch.log(p) - torch.log1p(-p)
 
 
 def log1mexp(x):

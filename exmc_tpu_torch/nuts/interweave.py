@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch import math as xm
-from exmc_tpu_torch.compiler import OBS_DATA_KEY, _align_dict, _const
-from exmc_tpu_torch.dists.base import get as get_dist
+from exmc_tpu_torch.compiler import OBS_DATA_KEY, _align_dist, _const
+from exmc_tpu_torch.dists.base import Distribution, get as get_dist
 from exmc_tpu_torch.point_map import _infer_shape
 from exmc_tpu_torch.transforms import get as get_transform
 
@@ -191,7 +191,7 @@ class _ExpChainTransform:
         return torch.log(s) / self.c
 
 
-class _ExpChainScaleDist:
+class _ExpChainScaleDist(Distribution):
     """Pushforward density of sigma = exp(c y), y ~ base(params):
     p_s(s) = p_y(log(s) / c) / (c s)."""
 
@@ -428,7 +428,7 @@ def _mean_value(q, mu_spec):
 
 def _prior_logpdf(g, s):
     """The scale's prior log-density per chain, s (C,) -> (C,)."""
-    s, params = _align_dict(s, g["params_t"])
+    s, params = _align_dist(g["dist"], s, g["params_t"])
     return xm.event_sum(g["dist"].logpdf(s, params))
 
 

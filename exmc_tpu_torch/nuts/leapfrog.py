@@ -1,9 +1,9 @@
-"""Leapfrog integrator and diagonal metric (``exmc_tpu/nuts/leapfrog.py``).
+"""Leapfrog integrator and metric (``exmc_tpu/nuts/leapfrog.py``).
 
-Batched over chains: q, p, grad are (C, d); a metric's ``inv`` is (C, d)
-(one inverse mass per chain) or (d,) shared by all. The dense metric is
-not ported yet (ROADMAP §1 item 5). We carry logp, not potential energy,
-so the kick uses +grad(logp).
+Batched over chains: q, p, grad are (C, d). A diagonal metric's ``inv``
+is (C, d) (one inverse mass per chain) or (d,) shared by all; a dense
+one's is (C, d, d), and its velocity is a batched mat-vec. We carry
+logp, not potential energy, so the kick uses +grad(logp).
 """
 
 from typing import NamedTuple
@@ -12,23 +12,33 @@ import torch
 
 
 class Metric(NamedTuple):
-    """Diagonal Euclidean metric. ``inv`` is the inverse mass;
-    ``chol_inv`` caches sqrt(inv) for momentum sampling."""
+    """Euclidean metric. ``inv`` is the inverse mass; ``chol_inv`` caches
+    sqrt(inv) (diagonal) or cholesky(inv) (dense) for momentum sampling."""
 
     inv: torch.Tensor
     chol_inv: torch.Tensor
+    dense: bool = False
 
 
 def make_metric(inv, dense=False) -> Metric:
     if dense:
-        raise NotImplementedError(
-            "dense mass matrix is not ported yet (ROADMAP §1 item 5)")
+        return Metric(inv=inv, chol_inv=torch.linalg.cholesky(inv), dense=True)
     return Metric(inv=inv, chol_inv=torch.sqrt(inv))
 
 
 def velocity(metric: Metric, p):
     """v = M^{-1} p."""
+    if metric.dense:
+        return torch.matmul(metric.inv, p.unsqueeze(-1)).squeeze(-1)
     return metric.inv * p
+
+
+def velocity_rows(metric: Metric, r):
+    """v = M^{-1} r for every row of r (C, k, d), each chain's rows
+    under its own metric."""
+    if metric.dense:
+        return torch.matmul(r, metric.inv.transpose(-1, -2))
+    return metric.inv.unsqueeze(-2) * r
 
 
 def kinetic_energy(metric: Metric, p):
@@ -37,10 +47,15 @@ def kinetic_energy(metric: Metric, p):
 
 
 def sample_momentum(metric: Metric, z):
-    """p ~ N(0, M) from standard normals ``z`` (C, d): p = z / sqrt(M^{-1}).
+    """p ~ N(0, M) from standard normals ``z`` (C, d): p = z / sqrt(M^{-1})
+    (diagonal), or p = L^{-T} z with M^{-1} = L L^T (dense).
 
     A diagonal entry inv == 0 FREEZES that coordinate (infinite mass): its
     momentum is 0, so it never drifts and adds no kinetic energy."""
+    if metric.dense:
+        return torch.linalg.solve_triangular(
+            metric.chol_inv.transpose(-1, -2), z.unsqueeze(-1),
+            upper=True).squeeze(-1)
     return torch.where(metric.chol_inv > 0, z / metric.chol_inv,
                        torch.zeros_like(z))
 

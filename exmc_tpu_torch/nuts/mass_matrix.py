@@ -1,9 +1,10 @@
-"""Welford online variance for the diagonal mass matrix
+"""Welford online (co)variance for the mass matrix
 (``exmc_tpu/nuts/mass_matrix.py``).
 
-Per-chain state: n (C,), mean (C, d), m2 (C, d). Stan shrinkage
-``(n/(n+5))*var + (5/(n+5))*1e-3`` with a 1e-6 floor. The dense m2 is
-not ported yet (ROADMAP §1 item 5).
+Per-chain state: n (C,), mean (C, d), m2 (C, d), or (C, d, d) for the
+dense metric (a sum of outer products). Stan shrinkage
+``(n/(n+5))*var + (5/(n+5))*1e-3`` with a 1e-6 floor (dense: toward
+1e-3 I, plus 1e-6 I).
 """
 
 from typing import NamedTuple
@@ -14,14 +15,14 @@ import torch
 class WelfordState(NamedTuple):
     n: torch.Tensor       # (C,) counts, or () after a merge
     mean: torch.Tensor    # (C, d) or (d,)
-    m2: torch.Tensor      # (C, d) or (d,)
+    m2: torch.Tensor      # (C, d) or (d,); dense (C, d, d) or (d, d)
 
 
-def welford_init(c, d, dtype=torch.float32, device=None):
+def welford_init(c, d, dtype=torch.float32, device=None, dense=False):
     return WelfordState(
         n=torch.zeros(c, dtype=dtype, device=device),
         mean=torch.zeros(c, d, dtype=dtype, device=device),
-        m2=torch.zeros(c, d, dtype=dtype, device=device),
+        m2=torch.zeros((c, d, d) if dense else (c, d), dtype=dtype, device=device),
     )
 
 
@@ -35,13 +36,18 @@ def welford_update(state: WelfordState, x, enabled):
     delta = x - state.mean
     mean = state.mean + delta / n[:, None]
     delta2 = x - mean
-    m2 = state.m2 + delta * delta2
+    dense = state.m2.ndim == 3
+    if dense:
+        m2 = state.m2 + delta[:, :, None] * delta2[:, None, :]
+    else:
+        m2 = state.m2 + delta * delta2
     w = enabled.to(x.dtype)
     wc = w[:, None]
+    wm = w[:, None, None] if dense else wc
     return WelfordState(
         n=state.n * (1 - w) + n * w,
         mean=state.mean * (1 - wc) + mean * wc,
-        m2=state.m2 * (1 - wc) + m2 * wc,
+        m2=state.m2 * (1 - wm) + m2 * wm,
     )
 
 
@@ -53,15 +59,29 @@ def welford_merge_across(state: WelfordState) -> WelfordState:
     safe = torch.clamp_min(n_tot, 1.0)
     mean_tot = (state.n[:, None] * state.mean).sum(0) / safe
     delta = state.mean - mean_tot
-    corr = state.n[:, None] * delta * delta
+    if state.m2.ndim == 3:
+        corr = state.n[:, None, None] * delta[:, :, None] * delta[:, None, :]
+    else:
+        corr = state.n[:, None] * delta * delta
     m2_tot = (state.m2 + corr).sum(0)
     return WelfordState(n=n_tot, mean=mean_tot, m2=m2_tot)
 
 
 def welford_finalize(state: WelfordState, prev):
-    """Finalize to a variance with Stan shrinkage and floor; keeps
-    ``prev`` where fewer than 2 samples accumulated. Broadcasts a merged
-    (chain-less) state against a per-chain ``prev`` (C, d)."""
+    """Finalize to a variance (or, dense, a covariance) with Stan
+    shrinkage and floor; keeps ``prev`` where fewer than 2 samples
+    accumulated. Broadcasts a merged (chain-less) state against a
+    per-chain ``prev`` (C, d) or (C, d, d)."""
+    if state.m2.ndim == state.mean.ndim + 1:
+        cnt = state.n.unsqueeze(-1).unsqueeze(-1)
+        n = torch.clamp_min(cnt, 2.0)
+        alpha = 5.0 / (cnt + 5.0)
+        d = state.m2.shape[-1]
+        eye = torch.eye(d, dtype=state.m2.dtype, device=state.m2.device)
+        cov = state.m2 / (n - 1.0)
+        shrunk = (1.0 - alpha) * cov + alpha * 1e-3 * eye
+        shrunk = shrunk + 1e-6 * eye
+        return torch.where(cnt >= 2.0, shrunk, prev)
     cnt = state.n.unsqueeze(-1)
     n = torch.clamp_min(cnt, 2.0)
     alpha = 5.0 / (cnt + 5.0)

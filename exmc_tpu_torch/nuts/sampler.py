@@ -17,11 +17,12 @@ not depend on the transitions' draws.
 ``interweave`` runs one ASIS scale update of every eligible group after
 each transition (``nuts/interweave.py``); ``gibbs_scales`` freezes those
 scales in the NUTS dynamics (inverse mass 0) and gives the trajectory
-the analytic conditional metric of their latents.
+the analytic conditional metric of their latents. ``dense_mass`` adapts
+a full (d, d) inverse mass per chain (a dense Welford covariance).
 
 Not ported yet (ROADMAP §1 item 9): streaming, ``run_chunked``,
-``warm_start``, ``shared_warmup``, the dense mass matrix, pathfinder and
-dict inits, and the sampler cache.
+``warm_start``, ``shared_warmup``, pathfinder and dict inits, and the
+sampler cache.
 """
 
 import warnings
@@ -167,7 +168,8 @@ def _pipeline_init(vag_fn, q0, logp0, grad0, metric0, eps0=None,
     eps = torch.full_like(logp0, 1.0) if eps0 is None else eps0
     zeros = torch.zeros(c, dtype=torch.int32, device=q0.device)
     return Carry(q0, logp0, grad0, da_init(eps),
-                 welford_init(c, d, q0.dtype, q0.device), metric0, zeros, zeros)
+                 welford_init(c, d, q0.dtype, q0.device, dense=metric0.dense),
+                 metric0, zeros, zeros)
 
 
 def _rescue(vag_fn, q, logp, grad, metric, rescues, generator):
@@ -188,7 +190,7 @@ def _rescue(vag_fn, q, logp, grad, metric, rescues, generator):
     q_new = keep(bad, q[ref_idx] + 0.01 * noise, q)
     logp_new, grad_new = vag_fn(q_new)
     inv_new = keep(bad, metric.inv[ref_idx].expand_as(metric.inv), metric.inv)
-    return (q_new, logp_new, grad_new, make_metric(inv_new),
+    return (q_new, logp_new, grad_new, make_metric(inv_new, dense=metric.dense),
             rescues + bad.to(torch.int32))
 
 
@@ -275,8 +277,8 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
                     # the Gibbs legs move the frozen scales between
                     # transitions; keep them out of the dynamics
                     inv = inv * freeze_mask
-                metric = make_metric(inv)
-                wf = welford_init(c, d, dtype, dev)
+                metric = make_metric(inv, dense=metric.dense)
+                wf = welford_init(c, d, dtype, dev, dense=metric.dense)
         if not warm:
             k = int(draw_idx[it])
             draws[:, k] = q
@@ -326,10 +328,9 @@ class NUTSSampler:
             raise ValueError(
                 "gibbs_scales is diag-metric only (freezing is an "
                 "inverse-mass zero on the scale coordinate)")
-        for opt, item in (("dense_mass", 5), ("shared_warmup", 9)):
-            if getattr(self, opt):
-                raise NotImplementedError(
-                    f"{opt}=True is not ported yet (ROADMAP §1 item {item})")
+        if self.shared_warmup:
+            raise NotImplementedError(
+                "shared_warmup=True is not ported yet (ROADMAP §1 item 9)")
         self._iw_fn = None
         if self.interweave:
             self._iw_fn = build_interweave(self.model)
@@ -403,10 +404,15 @@ class NUTSSampler:
 
         q_inits = self._resolve_inits(init, num_chains, seed)
         q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
-        inv0 = torch.ones(num_chains, d, dtype=q0.dtype, device=dev)
-        if self._freeze_mask is not None:
-            inv0 = inv0 * self._freeze_mask
-        metric0 = make_metric(inv0)
+        if self.dense_mass:
+            metric0 = make_metric(
+                torch.eye(d, dtype=q0.dtype, device=dev).repeat(num_chains, 1, 1),
+                dense=True)
+        else:
+            inv0 = torch.ones(num_chains, d, dtype=q0.dtype, device=dev)
+            if self._freeze_mask is not None:
+                inv0 = inv0 * self._freeze_mask
+            metric0 = make_metric(inv0)
         carry = _pipeline_init(vag, q0, logp0, grad0, metric0,
                                init_search=(self.num_warmup == 0),
                                generator=gen, syncs=syncs)

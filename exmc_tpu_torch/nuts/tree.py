@@ -46,6 +46,7 @@ from exmc_tpu_torch.nuts.leapfrog import (
     leapfrog,
     sample_momentum,
     velocity,
+    velocity_rows,
 )
 from exmc_tpu_torch.nuts.masked import HostSyncs, keep
 
@@ -71,13 +72,12 @@ def _iterative_uturn_check(metric, r_new, rho_through, ckpt, idx_min, idx_max):
       (b) left:  rho[s..mid-1] + r_mid, boundaries (r_s, r_mid)
       (c) right: rho[mid..n] + r_{mid-1}, boundaries (r_{mid-1}, r_n)
     At i == idx_max (the leaf pair) all three collapse to (a)."""
-    inv = metric.inv.unsqueeze(-2)              # (C, 1, d) or (1, d)
     v_new = velocity(metric, r_new).unsqueeze(1)
     rho_n = rho_through.unsqueeze(1)
     ck_r = ckpt[:, idx_min:idx_max + 1, 0]
     ck_rho = ckpt[:, idx_min:idx_max + 1, 1]
     rho_sub = rho_n - ck_rho + ck_r
-    turn = ((_dots(rho_sub, inv * ck_r) <= 0.0)
+    turn = ((_dots(rho_sub, velocity_rows(metric, ck_r)) <= 0.0)
             | (_dots(rho_sub, v_new) <= 0.0)).any(-1)
     if idx_max > idx_min:
         lo_r = ckpt[:, idx_min:idx_max, 0]
@@ -86,10 +86,10 @@ def _iterative_uturn_check(metric, r_new, rho_through, ckpt, idx_min, idx_max):
         nx_rho = ckpt[:, idx_min + 1:idx_max + 1, 1]
         nx_prev = ckpt[:, idx_min + 1:idx_max + 1, 2]
         rho_left = nx_rho - lo_rho + lo_r
-        turn_b = ((_dots(rho_left, inv * lo_r) <= 0.0)
-                  | (_dots(rho_left, inv * nx_r) <= 0.0))
+        turn_b = ((_dots(rho_left, velocity_rows(metric, lo_r)) <= 0.0)
+                  | (_dots(rho_left, velocity_rows(metric, nx_r)) <= 0.0))
         rho_right = rho_n - nx_rho + nx_r + nx_prev
-        turn_c = ((_dots(rho_right, inv * nx_prev) <= 0.0)
+        turn_c = ((_dots(rho_right, velocity_rows(metric, nx_prev)) <= 0.0)
                   | (_dots(rho_right, v_new) <= 0.0))
         turn = turn | (turn_b | turn_c).any(-1)
     return turn
