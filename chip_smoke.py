@@ -28,9 +28,9 @@ Phases, each printing one JSON line:
                compiled on the card and held against the CPU at 8 points,
                sampled under the card recipe at full width and held to the
                battery's criterion, max split R-hat and finite draws; run
-               by GOLD_WORKERS worker processes, one JSON line per gold and
-               a summary line; a gold that fails only under the card recipe
-               is run again at the JAX battery's recipe;
+               by a pool of GOLD_WORKERS processes, one JSON line per gold
+               and a summary line; a gold that fails only under the card
+               recipe is run again at the JAX battery's recipe;
   7. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
@@ -38,9 +38,9 @@ non-zero before it. Without a CUDA card the script exits 2 at once.
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -71,9 +71,9 @@ TOL_LOGP_REL = 1e-5
 # limit on one card (PERF.md, "Suite on the card").
 SUITE_ITERS = (150, 150)
 
-# Gold phase: worker processes sharing the card (the work is host-bound:
-# one sync per tree leaf), each taking a share of the golds balanced by
-# their measured cost (validation.CARD_COST_S).
+# Gold phase: worker processes sharing the card (one host sync per tree
+# leaf; together they reach ~1,840 syncs/s whether 4, 6 or 8 run,
+# PERF.md), each taking the next gold, longest first.
 GOLD_WORKERS = 4
 
 
@@ -226,37 +226,25 @@ def phase_suite():
     return launches
 
 
-def phase_golds():
-    """The 46 golds in GOLD_WORKERS processes; a gold that fails under the
-    card recipe is run again here at the JAX battery's recipe. Returns the
-    fused-leapfrog kernel's launches in the phase (read from each
-    worker's counter around its run)."""
+def phase_golds(workers=GOLD_WORKERS):
+    """The 46 golds in a pool of ``workers`` processes, each taking the
+    next gold, longest first; a gold that fails under the card recipe is
+    run again here at the JAX battery's recipe. Returns the
+    fused-leapfrog kernel's launches in the phase (each gold's read from
+    its worker's counter around its run)."""
     t0 = time.perf_counter()
-    outs = [tempfile.TemporaryFile(mode="w+") for _ in range(GOLD_WORKERS)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "exmc_tpu_torch.benchmarks.validation",
-         "--check-compile", "--shard", f"{k}/{GOLD_WORKERS}"],
-        stdout=out, text=True) for k, out in enumerate(outs)]
+    names = validation.card_order(
+        [validation.gold_name(m) for m in validation.all_gold_standards()])
     results, launches = [], 0
-    try:
-        for k, (proc, out) in enumerate(zip(procs, outs)):
-            if proc.wait(timeout=900) != 0:
-                fail(f"golds: worker {k} exited {proc.returncode}")
-            out.seek(0)
-            for line in out:
-                obj = json.loads(line)
-                if "model" in obj:
-                    results.append(obj)
-                    # the per-parameter detail of a 1000-long path is not
-                    # printed; worst_mean_use and sd_ratio_range sum it up
-                    emit({"phase": "golds",
-                          **{k2: v for k2, v in obj.items() if k2 != "params"}})
-                else:
-                    launches += obj["fused_leapfrog_gaussian_launches"]
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        runs = pool.imap_unordered(validation.run_named_gold, names)
+        for _ in names:
+            res = runs.next(timeout=900)
+            launches += res.pop("fused_leapfrog_gaussian_launches")
+            results.append(res)
+            # the per-parameter detail of a 1000-long path is not printed;
+            # worst_mean_use and sd_ratio_range sum it up
+            emit({"phase": "golds", **{k: v for k, v in res.items() if k != "params"}})
     failures, rerun = [], []
     for res in results:
         if res["compile_check"]["ok"] and res["gates_pass"]:
@@ -264,10 +252,8 @@ def phase_golds():
         if not res["compile_check"]["ok"]:
             failures.append(f"{res['model']}: compiled model differs from the CPU")
             continue
-        gs = validation.build_golds([res["model"]])[res["model"]]
-        fused_leapfrog_gaussian.launches = 0
-        again = validation.run_gold(gs, device="cuda", **validation.JAX_RECIPE)
-        launches += fused_leapfrog_gaussian.launches
+        again = validation.run_named_gold(res["model"], "jax", check_compile=False)
+        launches += again.pop("fused_leapfrog_gaussian_launches")
         emit({"phase": "golds", "recipe": "jax",
               **{k: v for k, v in again.items() if k != "params"}})
         rerun.append(res["model"])
@@ -275,7 +261,7 @@ def phase_golds():
             failures.append(f"{res['model']}: {', '.join(again['gate_failures'])}")
     n = len(results)
     emit({"phase": "golds_summary", "n_pass": n - len(failures), "n": n,
-          "seconds": time.perf_counter() - t0, "workers": GOLD_WORKERS,
+          "seconds": time.perf_counter() - t0, "workers": workers,
           "card_recipe": validation.CARD_RECIPE,
           "card_overrides": validation.CARD_OVERRIDES,
           "rerun_at_jax_recipe": rerun,

@@ -166,78 +166,47 @@ ALIASES = {
 }
 
 # The card recipe: many chains are nearly free on the card, a host sync
-# is not (PERF.md). Iterations a gold sets itself scale by
-# warmup / JAX_ITERS and draws / JAX_ITERS.
-CARD_RECIPE = {"num_chains": 64, "num_warmup": 200, "num_samples": 200, "seed": 42}
+# is not. Worker processes sharing one card top out at ~1,840 host syncs
+# a second in all, whether 4, 6 or 8 run (PERF.md), so the gold phase
+# lasts its golds' total syncs over that rate. Iterations a gold sets
+# itself scale by warmup / JAX_ITERS and draws / JAX_ITERS.
+CARD_RECIPE = {"num_chains": 64, "num_warmup": 120, "num_samples": 120, "seed": 42}
 # Golds whose card recipe differs. The masked tree loop runs as long as
-# the deepest tree of the batch, so golds with deep trees take 16 chains.
-# avtest_binomial_glmm's data pin each engine's logit to +/-0.05 (~45k
-# trials each): non-centered, that is a thin curved ridge
-# mu + sigma_a z_e = c_e where the diagonal metric needs depth-9 trees
-# and split R-hat sits at 1.04-1.05; centered, the ridge is linear in
-# (mu, a_e), and the dense metric whitens it.
+# the deepest tree of the batch, so the GRW (depth ~7 throughout) takes
+# 16 chains. The radon and crossed-effects posteriors are correlated
+# Gaussians: a dense metric pooled over the 64 chains whitens them
+# (0.64x and 0.53x the diagonal metric's syncs per iteration, and crossed's
+# R-hat 1.005 against 1.023). avtest_binomial_glmm's data pin each
+# engine's logit to +/-0.05 (~45k trials each): non-centered, that is a
+# thin curved ridge mu + sigma_a z_e = c_e where the diagonal metric needs
+# depth-9 trees and split R-hat sits at 1.04-1.05; centered, the ridge is
+# linear in (mu, a_e), and the dense metric whitens it.
+_DENSE_POOLED = {"dense_mass": True, "pooled_adaptation": True}
 CARD_OVERRIDES = {
-    "grw_kalman_t1000": {"num_chains": 16, "num_warmup": 300, "num_samples": 300},
-    "radon_varying_intercept": {"num_chains": 16, "num_warmup": 300, "num_samples": 300},
-    "crossed_random_effects_lmm": {"num_chains": 16, "num_warmup": 300,
-                                   "num_samples": 300},
-    "avtest_binomial_glmm": {"num_chains": 16, "ncp": False,
-                             "extra_opts": {"dense_mass": True}},
+    "grw_kalman_t1000": {"num_chains": 16, "num_warmup": 150, "num_samples": 150},
+    "radon_varying_intercept": {"extra_opts": _DENSE_POOLED},
+    "crossed_random_effects_lmm": {"extra_opts": _DENSE_POOLED},
+    "avtest_binomial_glmm": {"num_chains": 16, "num_warmup": 200, "num_samples": 200,
+                             "ncp": False, "extra_opts": {"dense_mass": True}},
 }
 JAX_RECIPE = {"num_chains": 4, "num_warmup": 1000, "num_samples": 1000, "seed": 42}
 JAX_ITERS = 1000
 RHAT_MAX = 1.05
 
-# Seconds each gold took under the card recipe with four workers sharing
-# an H100 80GB HBM3 (700 W), by this module's CLI; used only to balance
-# the workers of a gold run. Unlisted golds count 10 s.
+# Seconds the longest golds took in the gold phase of chip_smoke.py
+# (64 chains x 150+150, GRW 16 x 160+160; four workers sharing an H100
+# 80GB HBM3, 700 W); the others took ~5-15 s. Only their order matters:
+# a worker pool takes the golds longest first (``card_order``), so the
+# long ones never start last.
 CARD_COST_S = {
-    "conjugate_normal": 8.5,
-    "beta_binomial": 8.0,
-    "gamma_poisson": 8.5,
-    "normal_gamma_precision": 10.1,
-    "mvn_conjugate": 13.1,
-    "eight_schools_ncp": 32.4,
-    "exponential_gamma": 8.9,
-    "lognormal_conjugate": 8.3,
-    "uniform01_bernoulli": 9.2,
-    "custom_gaussian_conjugate": 9.9,
-    "dirichlet_prior": 11.7,
-    "mvn_dense_mass": 20.2,
-    "linreg_meas_obs_matmul": 9.4,
-    "affine_meas_obs": 9.5,
-    "studentt_loc": 9.7,
-    "cauchy_loc": 9.2,
-    "laplace_loc": 9.6,
-    "weibull_rate": 9.3,
-    "halfnormal_scale": 9.9,
-    "truncnorm_loc": 9.4,
-    "uniform_interval_normal": 9.2,
-    "mixture_loc": 9.0,
-    "censored_right_normal": 7.9,
-    "censored_interval_normal": 9.2,
-    "poisson_log_link": 8.5,
-    "grw_kalman_t1000": 169.4,
-    "funnel_v_marginal": 13.1,
-    "radon_varying_intercept": 132.6,
-    "kidiq_regression": 51.9,
-    "flat_prior_normal": 8.7,
-    "binomial_beta": 9.3,
-    "inverse_gamma_variance": 10.6,
-    "gumbel_loc": 9.1,
-    "beta_binomial_conc": 9.3,
-    "ordered_logistic_eta": 7.7,
-    "negbin_rate": 9.6,
-    "categorical_dirichlet": 12.8,
-    "lkj_marginals": 11.5,
-    "multinomial_dirichlet": 11.2,
-    "ordered_normal_orderstats": 31.3,
-    "zero_sum_normal_prior": 11.5,
-    "kilpisjarvi_real_regression": 16.4,
-    "diabetes_real_logistic": 20.5,
-    "crossed_random_effects_lmm": 83.3,
-    "avtest_binomial_glmm": 44.9,
-    "kilpisjarvi_ordinal": 9.0,
+    "grw_kalman_t1000": 113.8,
+    "radon_varying_intercept": 68.0,
+    "kidiq_regression": 50.8,
+    "crossed_random_effects_lmm": 45.9,
+    "avtest_binomial_glmm": 38.2,
+    "ordered_normal_orderstats": 26.9,
+    "eight_schools_ncp": 25.2,
+    "mvn_dense_mass": 24.0,
 }
 
 
@@ -246,16 +215,10 @@ def card_recipe(name):
     return dict(CARD_RECIPE, **CARD_OVERRIDES.get(name, {}))
 
 
-def shard(names, k, n):
-    """The golds of worker ``k`` of ``n``, in battery order: longest
-    first, each to the least loaded worker, by ``CARD_COST_S``."""
-    loads, mine = [0.0] * n, set()
-    for name in sorted(names, key=lambda g: -CARD_COST_S.get(g, 10.0)):
-        i = loads.index(min(loads))
-        loads[i] += CARD_COST_S.get(name, 10.0)
-        if i == k:
-            mine.add(name)
-    return [g for g in names if g in mine]
+def card_order(names):
+    """``names`` longest first by ``CARD_COST_S``, the rest in the given
+    order."""
+    return sorted(names, key=lambda g: -CARD_COST_S.get(g, 0.0))
 
 
 def all_gold_standards():
@@ -412,6 +375,24 @@ def compile_check(gs, device="cuda", n_points=8, seed=0, tol=1e-4):
     return ok, float(e_lp.max()), float(e_g.max())
 
 
+def run_named_gold(name, recipe="card", device="cuda", check_compile=True):
+    """Build one gold, hold its compiled model against the CPU's
+    (``check_compile``) and sample it under ``recipe`` ("card":
+    ``card_recipe``; "jax": the JAX battery's). The result carries the
+    fused-leapfrog kernel's launches during the gold's run; a worker
+    process of a pool runs this for one gold at a time."""
+    gs = build_golds([name])[name]
+    res = {}
+    if check_compile:
+        ok, e_lp, e_g = compile_check(gs, device=device)
+        res["compile_check"] = {"ok": ok, "logp_rel_err": e_lp, "grad_rel_err": e_g}
+    fused_leapfrog_gaussian.launches = 0
+    res.update(run_gold(gs, device=device,
+                        **(card_recipe(name) if recipe == "card" else JAX_RECIPE)))
+    res["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
+    return res
+
+
 def validate(num_warmup=1000, num_samples=1000, num_chains=4, seed=42,
              verbose=True, models=None, device=None):
     """Run the battery (every gold, or those named in ``models``) on the
@@ -436,30 +417,19 @@ def main(argv=None):
                          "4 chains x 1000+1000 with the gold's own options")
     ap.add_argument("--check-compile", action="store_true",
                     help="hold the compiled gold against the CPU first")
-    ap.add_argument("--shard", default="0/1",
-                    help="K/N: run worker K's share of N (balanced by CARD_COST_S)")
     args = ap.parse_args(argv)
-    k, n_shards = (int(v) for v in args.shard.split("/"))
     names = [gold_name(m) for m in all_gold_standards()
              if not args.golds or gold_name(m) in args.golds]
-    names = shard(names, k, n_shards)
     t0 = time.perf_counter()
-    n_pass = n = 0
-    fused_leapfrog_gaussian.launches = 0
-    for gs in build_golds(names).values():
-        res = {}
-        if args.check_compile:
-            ok, e_lp, e_g = compile_check(gs, device=args.device)
-            res["compile_check"] = {"ok": ok, "logp_rel_err": e_lp,
-                                    "grad_rel_err": e_g}
-        recipe = card_recipe(gs.name) if args.recipe == "card" else JAX_RECIPE
-        res.update(run_gold(gs, device=args.device, **recipe))
-        n += 1
+    n_pass = launches = 0
+    for name in names:
+        res = run_named_gold(name, args.recipe, args.device, args.check_compile)
         n_pass += res["gates_pass"] and res.get("compile_check", {"ok": True})["ok"]
+        launches += res["fused_leapfrog_gaussian_launches"]
         print(json.dumps(res), flush=True)
-    print(json.dumps({"n_pass": n_pass, "n": n, "seconds": time.perf_counter() - t0,
-                      "fused_leapfrog_gaussian_launches":
-                      fused_leapfrog_gaussian.launches}), flush=True)
+    print(json.dumps({"n_pass": n_pass, "n": len(names),
+                      "seconds": time.perf_counter() - t0,
+                      "fused_leapfrog_gaussian_launches": launches}), flush=True)
 
 
 if __name__ == "__main__":

@@ -152,6 +152,21 @@ def test_recipe_scales_a_golds_own_iterations():
         "dense_mass": True, "num_warmup": 300, "num_samples": 300}
 
 
+@pytest.mark.parametrize("name", sorted(tvalidation.CARD_OVERRIDES))
+def test_card_recipe_overrides(name):
+    """An override names a gold and changes only how it is sampled; the
+    card order keeps every gold once, the costed ones first."""
+    over = tvalidation.CARD_OVERRIDES[name]
+    assert name in NAMES
+    assert tvalidation.card_recipe(name) == dict(tvalidation.CARD_RECIPE, **over)
+    assert set(over) <= {"num_chains", "num_warmup", "num_samples", "ncp", "extra_opts"}
+    assert tvalidation.card_recipe("conjugate_normal") == tvalidation.CARD_RECIPE
+    order = tvalidation.card_order(NAMES)
+    assert sorted(order) == sorted(NAMES)
+    assert order[:len(tvalidation.CARD_COST_S)] == sorted(
+        tvalidation.CARD_COST_S, key=lambda g: -tvalidation.CARD_COST_S[g])
+
+
 @pytest.mark.gpu
 def test_golds_compile_on_the_card():
     """Each gold compiled on the card equals its CPU compile at 8 points

@@ -139,6 +139,46 @@ def test_log_clamp_edge_gradient_matches_jax():
         np.testing.assert_array_equal(g.numpy()[0], np.asarray(ref))
 
 
+@pytest.mark.parametrize("gold", ["dirichlet_prior", "lkj_marginals",
+                                  "ordered_normal_orderstats",
+                                  "zero_sum_normal_prior", "uniform_interval_normal"])
+def test_point_map_matches_jax(gold):
+    """PointMap over a gold's rewritten IR: the same entries (offsets,
+    lengths, constrained and unconstrained shapes) as the JAX package's;
+    ``to_constrained`` of a batch equals JAX's per row, and
+    ``to_unconstrained`` / ``pack`` / ``unpack`` invert it."""
+    from exmc_tpu import rewrite as jrewrite
+    from exmc_tpu.benchmarks import validation as jvalidation
+    from exmc_tpu.point_map import PointMap as JPointMap
+    from exmc_tpu_torch import rewrite as trewrite
+    from exmc_tpu_torch.benchmarks import validation as tvalidation
+    from exmc_tpu_torch.point_map import PointMap
+
+    tg = tvalidation.build_golds([gold])[gold]
+    make = next(m for m in tvalidation.all_gold_standards()
+                if tvalidation.gold_name(m) == gold)
+    jg = {m.__name__: m for m in jvalidation._all_gold_standards()}[make.__name__]()
+    jpm = JPointMap.build(jrewrite.apply(jg.ir, ncp=False))
+    tpm = PointMap.build(trewrite.apply(tg.ir, ncp=False))
+    assert tpm.size == jpm.size
+    for je, te in zip(jpm.entries, tpm.entries, strict=True):
+        assert (te.id, te.offset, te.length, tuple(te.shape), tuple(te.ushape)) == (
+            je.id, je.offset, je.length, tuple(je.shape), tuple(je.ushape))
+        assert tpm.entry(te.id) is te
+    flat = np.random.default_rng(7).normal(size=(C, tpm.size)).astype(np.float32)
+    got = tpm.to_constrained(torch.as_tensor(flat))
+    for i in range(C):
+        want = jpm.to_constrained(jnp.asarray(flat[i]))
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k][i].numpy(), np.asarray(v),
+                                       rtol=1e-5, atol=1e-5)
+    back = tpm.to_unconstrained(got)
+    np.testing.assert_allclose(back.numpy(), flat, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(tpm.pack(tpm.unpack(torch.as_tensor(flat))).numpy(), flat)
+    with pytest.raises(KeyError):
+        tpm.entry("no_such_rv")
+
+
 def test_registry_returns_all_twelve():
     names = ["identity", "log", "softplus", "logit", "stick_breaking",
              "cholesky_corr", "ordered", "positive_ordered", "zero_sum"]
