@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # the full run: one card, no arguments
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   1. device  — the card's name, the device count, nvidia-smi's name and
                power limit;
   2. build   — nvcc build of every source in exmc_tpu_torch/csrc, with
@@ -16,22 +16,34 @@ Phases, each printing one JSON line:
                rescue, max_depth 10) with its posterior checked against
                the statistical target, and the compiled model checked
                against the same model on the CPU;
-  5. suite   — the seven-model suite under the JAX package's recipe
-               (chain counts, centered models, interweave and
-               gibbs_scales) at full width, one seed, SUITE_ITERS
-               iterations; one line per model, each held to its gates
-               (finite draws, split R-hat, divergence rate, posterior
-               means against the JAX package's), with the interweave step
-               and conditional metric run once under CUDA's sync check;
-  6. golds   — the 46 non-Stan gold standards of the JAX package's
-               validation battery (exmc_tpu_torch/benchmarks), each
-               compiled on the card and held against the CPU at 8 points,
-               sampled under the card recipe at full width and held to the
-               battery's criterion, max split R-hat and finite draws; run
-               by a pool of GOLD_WORKERS processes, one JSON line per gold
-               and a summary line; a gold that fails only under the card
-               recipe is run again at the JAX battery's recipe;
-  7. kernels — one JSON object with every kernel's numbers.
+  5. pool    — one spawn pool of POOL_WORKERS processes sharing the card,
+               each taking the next task, longest first (POOL_COST_S):
+               * suite: the seven-model suite under the JAX package's
+                 recipe (chain counts, centered models, interweave and
+                 gibbs_scales) at full width, one seed, SUITE_ITERS
+                 iterations; one line per model, each held to its gates
+                 (finite draws, split R-hat, divergence rate, posterior
+                 means against the JAX package's), with the interweave
+                 step and conditional metric run once under CUDA's sync
+                 check;
+               * golds: the JAX validation battery's 51 gold standards
+                 (exmc_tpu_torch/benchmarks; five built through the Stan
+                 frontend), each compiled on the card and held against the
+                 CPU at 8 points, sampled under the card recipe at full
+                 width and held to the battery's criterion, max split
+                 R-hat and finite draws; a gold that fails only under the
+                 card recipe is run again at the JAX battery's recipe;
+               * entry: the remaining entry points
+                 (exmc_tpu_torch/benchmarks/entry.py), one line per check:
+                 the CLI (check, sample, summary as subprocesses on
+                 stan_logistic_d21), run_chunked and a checkpoint resume
+                 bit for bit equal to run, sample_stream in chunks and
+                 every k draws, the data channel with a warm-started refit
+                 through the sampler cache, and shared warmup;
+               then one summary line each for the suite, the golds, the
+               entry checks and the pool (on an H100 80GB HBM3 at 700 W
+               the pool takes ~400 s and the whole script ~460 s);
+  6. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
 """
@@ -42,13 +54,14 @@ import multiprocessing
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
-from exmc_tpu_torch.benchmarks import suite, validation
+from exmc_tpu_torch.benchmarks import entry, suite, validation
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -71,10 +84,38 @@ TOL_LOGP_REL = 1e-5
 # limit on one card (PERF.md, "Suite on the card").
 SUITE_ITERS = (150, 150)
 
-# Gold phase: worker processes sharing the card (one host sync per tree
-# leaf; together they reach ~1,840 syncs/s whether 4, 6 or 8 run,
-# PERF.md), each taking the next gold, longest first.
-GOLD_WORKERS = 4
+# Pool phase: worker processes sharing the card (one host sync per tree
+# leaf; together they reach ~1,300-1,840 syncs/s whether 4, 6 or 8 run,
+# PERF.md), each taking the next task, longest first.
+POOL_WORKERS = 4
+# Estimated seconds of the longest tasks in the pool: their host syncs in
+# PR 3's card runs (the suite's at 150+150, the golds' under the card
+# recipe) at ~2.3 ms a sync, the entry tasks' from their runs' sizes.
+# Only the order matters: the long tasks never start last.
+POOL_COST_S = {
+    ("suite", "eight_schools"): 250.0,
+    ("gold", "grw_kalman_t1000"): 114.0,
+    ("entry", "chunked_stream"): 110.0,
+    ("suite", "sv"): 95.0,
+    ("gold", "radon_varying_intercept"): 68.0,
+    ("gold", "kidiq_regression"): 51.0,
+    ("gold", "crossed_random_effects_lmm"): 46.0,
+    ("suite", "medium"): 45.0,
+    ("entry", "cli"): 40.0,
+    ("gold", "avtest_binomial_glmm"): 38.0,
+    ("entry", "data_warm_start"): 30.0,
+    ("gold", "ordered_normal_orderstats"): 27.0,
+    ("gold", "eight_schools_ncp"): 25.0,
+    ("gold", "stan_eight_schools"): 25.0,
+    ("gold", "stan_eight_schools_ncp"): 25.0,
+    ("gold", "mvn_dense_mass"): 24.0,
+    ("suite", "simple"): 22.0,
+    ("suite", "logistic"): 21.0,
+    ("suite", "funnel"): 20.0,
+    ("suite", "stress"): 17.0,
+    ("entry", "shared_warmup"): 15.0,
+}
+N_GOLDS = 51
 
 
 def emit(obj):
@@ -209,67 +250,113 @@ def phase_main(num_warmup, num_samples):
     return main_launches
 
 
-def phase_suite():
-    """Every suite model under the recipe at full width, SUITE_ITERS
-    iterations, one line per model; a model that breaks a gate fails the
-    script after the phase. Returns the phase's kernel launches."""
-    fused_leapfrog_gaussian.launches = 0
-    failures = []
-    for name in suite.MODELS:
+def pool_tasks():
+    """Every task of the pool phase, longest first by POOL_COST_S, the
+    rest in suite, battery and entry order."""
+    tasks = ([("suite", m) for m in suite.MODELS]
+             + [("gold", validation.gold_name(m)) for m in validation.all_gold_standards()]
+             + [("entry", t) for t in entry.TASKS])
+    return sorted(tasks, key=lambda t: -POOL_COST_S.get(t, 0.0))
+
+
+PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry"}
+
+
+def run_task(task):
+    """One pool task in a worker process: a list of JSON lines, each
+    with its phase and the fused-leapfrog kernel's launches read from
+    the worker's counter around the task. A task that raises returns
+    one line with the error, reported after the pool."""
+    kind, name = task
+    try:
+        return _run_task(kind, name)
+    except Exception:  # noqa: BLE001 - every task's fault is reported
+        return [{"phase": PHASE_OF[kind], "task": name, "error": traceback.format_exc()[-3000:],
+                 "fused_leapfrog_gaussian_launches": 0}]
+
+
+def _run_task(kind, name):
+    if kind == "gold":
+        res = validation.run_named_gold(name)
+        # the per-parameter detail of a 1000-long path is not printed;
+        # worst_mean_use and sd_ratio_range sum it up
+        return [{"phase": "golds", **{k: v for k, v in res.items() if k != "params"}}]
+    if kind == "suite":
+        fused_leapfrog_gaussian.launches = 0
         res = suite.run_checked(name, *SUITE_ITERS, device="cuda")
-        emit({"phase": "suite", **res})
-        if res["gate_failures"]:
-            failures.append(f"{name}: {'; '.join(res['gate_failures'])}")
-    launches = {"fused_leapfrog_gaussian": fused_leapfrog_gaussian.launches}
-    if failures:
-        fail("suite: " + " | ".join(failures))
-    return launches
+        return [{"phase": "suite", **res,
+                 "fused_leapfrog_gaussian_launches": fused_leapfrog_gaussian.launches}]
+    return [{"phase": "entry", **res} for res in entry.run_check(name, "cuda")]
 
 
-def phase_golds(workers=GOLD_WORKERS):
-    """The 46 golds in a pool of ``workers`` processes, each taking the
-    next gold, longest first; a gold that fails under the card recipe is
-    run again here at the JAX battery's recipe. Returns the
-    fused-leapfrog kernel's launches in the phase (each gold's read from
-    its worker's counter around its run)."""
+def phase_pool(workers=POOL_WORKERS):
+    """The suite, the golds and the entry checks in a pool of ``workers``
+    processes, each taking the next task, longest first; a gold that
+    fails under the card recipe is run again here at the JAX battery's
+    recipe. Returns the fused-leapfrog kernel's launches of each part."""
     t0 = time.perf_counter()
-    names = validation.card_order(
-        [validation.gold_name(m) for m in validation.all_gold_standards()])
-    results, launches = [], 0
+    tasks = pool_tasks()
+    lines = []
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        runs = pool.imap_unordered(validation.run_named_gold, names)
-        for _ in names:
-            res = runs.next(timeout=900)
-            launches += res.pop("fused_leapfrog_gaussian_launches")
-            results.append(res)
-            # the per-parameter detail of a 1000-long path is not printed;
-            # worst_mean_use and sd_ratio_range sum it up
-            emit({"phase": "golds", **{k: v for k, v in res.items() if k != "params"}})
-    failures, rerun = [], []
-    for res in results:
+        runs = pool.imap_unordered(run_task, tasks)
+        for _ in tasks:
+            for line in runs.next(timeout=900):
+                emit(line)
+                lines.append(line)
+    seconds = time.perf_counter() - t0
+    by_phase = {p: [x for x in lines if x["phase"] == p] for p in ("suite", "golds", "entry")}
+    launches = {p: sum(x.pop("fused_leapfrog_gaussian_launches") for x in xs)
+                for p, xs in by_phase.items()}
+    failures = {p: [f"{x['task']}: {x['error']}" for x in xs if "error" in x]
+                for p, xs in by_phase.items()}
+    by_phase = {p: [x for x in xs if "error" not in x] for p, xs in by_phase.items()}
+    n_errors = {p: len(f) for p, f in failures.items()}
+
+    for res in by_phase["suite"]:
+        if res["gate_failures"]:
+            failures["suite"].append(f"{res['model']}: {'; '.join(res['gate_failures'])}")
+    n_suite = len(by_phase["suite"]) + n_errors["suite"]
+    emit({"phase": "suite_summary", "n_pass": n_suite - len(failures["suite"]),
+          "n": n_suite, "fused_leapfrog_gaussian_launches": launches["suite"]})
+
+    rerun = []
+    for res in by_phase["golds"]:
         if res["compile_check"]["ok"] and res["gates_pass"]:
             continue
         if not res["compile_check"]["ok"]:
-            failures.append(f"{res['model']}: compiled model differs from the CPU")
+            failures["golds"].append(f"{res['model']}: compiled model differs from the CPU")
             continue
         again = validation.run_named_gold(res["model"], "jax", check_compile=False)
-        launches += again.pop("fused_leapfrog_gaussian_launches")
+        launches["golds"] += again.pop("fused_leapfrog_gaussian_launches")
         emit({"phase": "golds", "recipe": "jax",
               **{k: v for k, v in again.items() if k != "params"}})
         rerun.append(res["model"])
         if not again["gates_pass"]:
-            failures.append(f"{res['model']}: {', '.join(again['gate_failures'])}")
-    n = len(results)
-    emit({"phase": "golds_summary", "n_pass": n - len(failures), "n": n,
-          "seconds": time.perf_counter() - t0, "workers": workers,
+            failures["golds"].append(f"{res['model']}: {', '.join(again['gate_failures'])}")
+    n = len(by_phase["golds"]) + n_errors["golds"]
+    emit({"phase": "golds_summary", "n_pass": n - len(failures["golds"]), "n": n,
           "card_recipe": validation.CARD_RECIPE,
           "card_overrides": validation.CARD_OVERRIDES,
           "rerun_at_jax_recipe": rerun,
-          "fused_leapfrog_gaussian_launches": launches})
-    if n != 46:
-        fail(f"golds: {n} results, expected 46")
-    if failures:
-        fail("golds: " + " | ".join(failures))
+          "fused_leapfrog_gaussian_launches": launches["golds"]})
+
+    for res in by_phase["entry"]:
+        if not res["ok"]:
+            failures["entry"].append(f"{res['check']}: {'; '.join(res['failures'])}")
+    n_entry = len(by_phase["entry"]) + n_errors["entry"]
+    emit({"phase": "entry_summary", "n_pass": n_entry - len(failures["entry"]),
+          "n": n_entry,
+          "fused_leapfrog_gaussian_launches": launches["entry"]})
+    emit({"phase": "pool_summary", "seconds": seconds, "workers": workers,
+          "tasks": len(tasks)})
+
+    if n != N_GOLDS:
+        fail(f"golds: {n} results, expected {N_GOLDS}")
+    if n_suite != len(suite.MODELS):
+        fail(f"suite: {n_suite} results, expected {len(suite.MODELS)}")
+    for p, fs in failures.items():
+        if fs:
+            fail(f"{p}: " + " | ".join(fs))
     return launches
 
 
@@ -302,8 +389,7 @@ def main(argv=None):
         fail(f"ops path launched the kernel {path_launches} times, "
              f"expected {len(OPS_SHAPES)}")
     main_launches = phase_main(args.warmup, args.draws)
-    suite_launches = phase_suite()
-    gold_launches = phase_golds()
+    pool_launches = phase_pool()
 
     big = rows[-1]
     print(smi, flush=True)
@@ -316,8 +402,9 @@ def main(argv=None):
         "launches_path": "exmc_tpu_torch.ops.fused_leapfrog_gaussian at "
                          f"{len(OPS_SHAPES)} shapes",
         "main_path_launches": main_launches["fused_leapfrog_gaussian"],
-        "suite_path_launches": suite_launches["fused_leapfrog_gaussian"],
-        "gold_path_launches": gold_launches,
+        "suite_path_launches": pool_launches["suite"],
+        "gold_path_launches": pool_launches["golds"],
+        "entry_path_launches": pool_launches["entry"],
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

@@ -8,8 +8,15 @@ imports torch, numpy and the standard library only. Entry points run on
 
 from exmc_tpu_torch import dists
 from exmc_tpu_torch.compiler import compile_logp
+from exmc_tpu_torch.dsl import Model
 from exmc_tpu_torch.ir import IR, Builder, Node
-from exmc_tpu_torch.nuts.sampler import NUTSSampler, sample
+from exmc_tpu_torch.nuts.sampler import (
+    NUTSSampler,
+    sample,
+    sample_chains,
+    sample_stream,
+)
+from exmc_tpu_torch import stan
 
-__all__ = ["Builder", "IR", "Node", "dists", "compile_logp", "NUTSSampler",
-           "sample"]
+__all__ = ["Builder", "IR", "Node", "Model", "dists", "compile_logp",
+           "NUTSSampler", "sample", "sample_chains", "sample_stream", "stan"]

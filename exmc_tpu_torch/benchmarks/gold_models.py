@@ -1,15 +1,17 @@
-"""The 40 non-Stan gold standards of the JAX package's expanded zoo
+"""The 45 gold standards of the JAX package's expanded zoo
 (``exmc_tpu/benchmarks/gold_models.py``), built with the port's
-``Builder`` from the same seeds and data.
+``Builder`` (the five ``stan_*`` through the port's ``stan.compile``)
+from the same seeds and data.
 
 Each target is exact, by the JAX module's own means: conjugate
 posteriors, dense-grid quadrature of a scalar posterior, the Kalman/RTS
 smoother of a Gaussian random walk, closed-form LKJ and order-statistic
-moments. Seven targets come from marginalized Laplace fits with 400k-draw
+moments. Eight targets come from marginalized Laplace fits with 400k-draw
 importance sampling or dense multi-dimensional grids (radon, kidiq,
-the crossed LMM, the AV-TEST GLMM, the two Kilpisjärvi models and
-diabetes); those are stored here as constants (``HEAVY_TARGETS``),
-equal to the JAX module's values (``tests/test_torch_golds.py``).
+the crossed LMM, the AV-TEST GLMM, the two Kilpisjärvi models,
+diabetes and the d=21 Stan logistic regression); those are stored here
+as constants (``HEAVY_TARGETS``), equal to the JAX module's values
+(``tests/test_torch_golds.py``).
 
 Callable det nodes receive batched, aligned torch tensors with the chain
 axis first (``compiler.py``): an index goes through the ``getitem`` det
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 from scipy.special import gammaln, log_ndtr, ndtr
 
-from exmc_tpu_torch import Builder, dists
+from exmc_tpu_torch import Builder, dists, stan
 from exmc_tpu_torch.benchmarks.validation import GoldStandard
 from exmc_tpu_torch.datasets import load_csv, load_diabetes, load_kilpisjarvi
 
@@ -440,6 +442,143 @@ def grw_kalman_t1000(seed=31):
 # multilevel and regression models with stored targets
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Stan-frontend-built models
+# ---------------------------------------------------------------------------
+
+EIGHT_SCHOOLS_DATA = {
+    "J": 8,
+    "y": np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]),
+    "sigma": np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]),
+}
+
+STAN_EIGHT_SCHOOLS = """
+    data { int J; vector[J] y; vector[J] sigma; }
+    parameters { real mu; real<lower=0> tau; vector[J] theta; }
+    model {
+      mu ~ normal(0, 5);
+      tau ~ half_cauchy(5);
+      theta ~ normal(mu, tau);
+      y ~ normal(theta, sigma);
+    }
+    """
+
+STAN_EIGHT_SCHOOLS_NCP = """
+    data { int J; vector[J] y; vector[J] sigma; }
+    parameters { real mu; real<lower=0> tau; vector[J] theta_raw; }
+    transformed parameters { vector[J] theta = mu + tau * theta_raw; }
+    model {
+      mu ~ normal(0, 5);
+      tau ~ half_cauchy(5);
+      theta_raw ~ normal(0, 1);
+      y ~ normal(theta, sigma);
+    }
+    """
+
+STAN_LOGISTIC = """
+    data { int N; int K; matrix[N, K] X; vector[N] y; }
+    parameters { vector[K] beta; }
+    model {
+      beta ~ normal(0, 2.5);
+      y ~ bernoulli(sigmoid(X * beta));
+    }
+    """
+
+
+def stan_eight_schools():
+    """Eight schools built through the Stan frontend (vector params +
+    data); published posterior moments."""
+    ir = stan.compile(STAN_EIGHT_SCHOOLS, EIGHT_SCHOOLS_DATA)
+    return GoldStandard(
+        "stan_eight_schools", ir,
+        {"mu": 4.4, "tau": 3.6}, {"mu": 3.3, "tau": 3.2}, ncp=True,
+    )
+
+
+def stan_uniform_normal(seed=32):
+    """The target of uniform_interval_normal, built via Stan syntax
+    'theta ~ uniform(2, 5)'."""
+    rng = np.random.default_rng(seed)
+    n, theta_true = 15, 2.6
+    ys = rng.normal(theta_true, 1.0, size=n)
+    code = """
+    data { vector[15] y; }
+    parameters { real theta; }
+    model {
+      theta ~ uniform(2, 5);
+      y ~ normal(theta, 1);
+    }
+    """
+    ir = stan.compile(code, {"y": ys})
+
+    def log_post(th):
+        z = ys[:, None] - th[None, :]
+        return (-0.5 * z * z).sum(0)
+
+    mean, sd = quadrature_posterior(log_post, 2.0 + 1e-9, 5.0 - 1e-9)
+    return GoldStandard("stan_uniform_normal", ir, {"theta": mean},
+                        {"theta": sd})
+
+
+def stan_logistic_1d(seed=33):
+    """1-coefficient logistic regression via the Stan frontend's
+    expression grammar (sigmoid + arithmetic); quadrature exact."""
+    rng = np.random.default_rng(seed)
+    n, beta_true = 100, 1.2
+    x = rng.normal(0.0, 1.0, size=n)
+    p = 1.0 / (1.0 + np.exp(-beta_true * x))
+    ys = (rng.random(n) < p).astype(np.float64)
+    code = """
+    data { vector[100] x; vector[100] y; }
+    parameters { real beta; }
+    model {
+      beta ~ normal(0, 2.5);
+      y ~ bernoulli(sigmoid(beta * x));
+    }
+    """
+    ir = stan.compile(code, {"x": x, "y": ys})
+
+    def log_post(beta):
+        eta = x[:, None] * beta[None, :]
+        lik = ys[:, None] * eta - np.log1p(np.exp(eta))
+        return lik.sum(0) - 0.5 * (beta / 2.5) ** 2
+
+    mean, sd = quadrature_posterior(log_post, -1.0, 4.0)
+    return GoldStandard("stan_logistic_1d", ir, {"beta": mean},
+                        {"beta": sd})
+
+
+def stan_eight_schools_ncp():
+    """Eight schools in Stan NCP syntax, transformed parameters
+    ``theta = mu + tau * theta_raw``; published posterior moments. The
+    program is the NCP: no auto-NCP rewrite on top."""
+    ir = stan.compile(STAN_EIGHT_SCHOOLS_NCP, EIGHT_SCHOOLS_DATA)
+    return GoldStandard(
+        "stan_eight_schools_ncp", ir,
+        {"mu": 4.4, "tau": 3.6}, {"mu": 3.3, "tau": 3.2}, ncp=False,
+    )
+
+
+def stan_logistic_d21_data(seed=35):
+    """The d=21 logistic regression's data: X (500, 21), y (500,)."""
+    rng = np.random.default_rng(seed)
+    n, k = 500, 21
+    x = rng.normal(size=(n, k)).astype(np.float64)
+    beta_true = rng.normal(0.0, 0.5, size=k)
+    p = 1.0 / (1.0 + np.exp(-(x @ beta_true)))
+    y = (rng.random(n) < p).astype(np.float64)
+    return {"N": n, "K": k, "X": x.astype(np.float32), "y": y.astype(np.float32)}
+
+
+def stan_logistic_d21(seed=35):
+    """d=21 logistic regression (the reference's headline GLM scale)
+    built via the Stan frontend's matrix syntax; its target (Laplace +
+    400k-draw importance sampling in the JAX module) is stored in
+    ``HEAVY_TARGETS``."""
+    ir = stan.compile(STAN_LOGISTIC, stan_logistic_d21_data(seed))
+    return _heavy("stan_logistic_d21", ir)
+
+
 def radon_varying_intercept(seed=40, n_counties=85, n_homes=919):
     """Radon-style varying-intercept multilevel model (d = 89):
     mu_a ~ N(0, 10); sigma_a ~ HalfNormal(1); alpha_j ~ N(mu_a, sigma_a)
@@ -841,6 +980,11 @@ EXTRA_GOLD_STANDARDS = [
     censored_interval_normal,
     poisson_log_link,
     grw_kalman_t1000,
+    stan_eight_schools,
+    stan_uniform_normal,
+    stan_logistic_1d,
+    stan_eight_schools_ncp,
+    stan_logistic_d21,
     funnel_v_marginal,
     radon_varying_intercept,
     kidiq_regression,
@@ -1058,6 +1202,30 @@ HEAVY_TARGETS = {
             'beta': 0.25678457875986205,
             'c': [
                 0.27418231986734604, 0.2860767097340375
+            ],
+        },
+    },
+    'stan_logistic_d21': {
+        'means': {
+            'beta': [
+                0.7267707561891643, -0.3529081219242249, 0.30487225901929277,
+                1.1547348468620064, -0.18840387358300634, 0.22751487866709397,
+                -0.22568214939188877, 0.3496640050261371, -0.422698056851553,
+                0.7983074016775188, 0.22413969899822223, 0.20174570221621851,
+                0.025303519510855767, -0.8593426634839199, 0.5799866663096497,
+                0.25746655192503837, -0.6262854750552398, 0.46233752464608646,
+                -1.0348696422143682, 0.11761278929709812, 0.7605358555561578
+            ],
+        },
+        'sds': {
+            'beta': [
+                0.14135087015297584, 0.1229052758132, 0.132761632829056,
+                0.14988726081557388, 0.11950233234082185, 0.12216945639442431,
+                0.12786216402671413, 0.1292603720682045, 0.1273243345665528,
+                0.14071669691140676, 0.12501917090036252, 0.13087024453364976,
+                0.1267580648381488, 0.14761228504699658, 0.14018911647717774,
+                0.13689907163279003, 0.13106528319105804, 0.13668476369003935,
+                0.15602159212221245, 0.13654138308893898, 0.13422175131196384
             ],
         },
     },

@@ -222,7 +222,9 @@ def card_order(names):
 
 
 def all_gold_standards():
-    """The core six and the 40 non-Stan extras (``gold_models.py``)."""
+    """The JAX battery's 51 golds in its order: the core six and the 45
+    extras (``gold_models.py``), five of them built through the Stan
+    frontend."""
     from exmc_tpu_torch.benchmarks.gold_models import EXTRA_GOLD_STANDARDS
 
     return CORE_GOLD_STANDARDS + EXTRA_GOLD_STANDARDS
@@ -410,7 +412,7 @@ def validate(num_warmup=1000, num_samples=1000, num_chains=4, seed=42,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Run gold standards on the port.")
-    ap.add_argument("golds", nargs="*", help="gold names (default: all 46)")
+    ap.add_argument("golds", nargs="*", help="gold names (default: all 51)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--recipe", choices=("card", "jax"), default="card",
                     help="card: card_recipe(gold); jax: the JAX battery's "

@@ -27,6 +27,13 @@ Observations may be censored (``Censored``), measurable-lifted
 (``meas_obs``: the matmul and affine Jacobians), or read from the data
 registered with ``Builder.data``, whole (``"__obs_data"``) or keyed
 (``("__obs_data", key)``).
+
+That data is also the runtime data channel: ``logp(flat, data)`` and
+``value_and_grad(flat, data)`` read ``"__obs_data"`` refs from the
+call's ``data`` (None: the model's own), so a compiled model reruns on
+new observations without a recompile. A run moves its data to the
+device once (``CompiledModel.device_data``); the CUDA graph of
+``GraphedValueAndGrad`` then reads it from static input buffers.
 """
 
 from dataclasses import dataclass
@@ -270,6 +277,38 @@ def _const(value, device):
     return t if t.ndim == 0 else t.unsqueeze(0)
 
 
+@dataclass(frozen=True)
+class DeviceData:
+    """Observation data on a model's device, in the form the compiled
+    log-density reads: a tensor, or a dict of tensors, each with a
+    leading axis of 1 (0-d for a scalar). Made once per run by
+    ``CompiledModel.device_data``."""
+
+    value: Any
+
+    def leaves(self):
+        if isinstance(self.value, dict):
+            return [self.value[k] for k in sorted(self.value)]
+        return [self.value]
+
+    def with_leaves(self, leaves):
+        if isinstance(self.value, dict):
+            return DeviceData(dict(zip(sorted(self.value), leaves)))
+        return DeviceData(leaves[0])
+
+
+def _device_value(data, device):
+    """The compiled form of ``data`` (raw arrays, a dict of them, or a
+    ``DeviceData``); None stays None."""
+    if data is None:
+        return None
+    if isinstance(data, DeviceData):
+        return data.value
+    if isinstance(data, dict):
+        return {k: _const(v, device) for k, v in data.items()}
+    return _const(data, device)
+
+
 def _base_data(data):
     """The value plain "__obs_data" refs see: with keyed data the
     model's own data rides the reserved "__base" key."""
@@ -286,19 +325,65 @@ class CompiledModel:
     ir: IR                      # rewritten IR
     pm: PointMap
     ncp_info: dict
-    logp: Callable              # (C, d) -> (C,)
-    value_and_grad: Callable    # (C, d) -> ((C,), (C, d))
+    logp: Callable              # ((C, d), data=None) -> (C,)
+    value_and_grad: Callable    # ((C, d), data=None) -> ((C,), (C, d))
     device: torch.device
-    data: Any = None
+    data: Any = None            # the model's own data (Builder.data)
 
     @property
     def size(self) -> int:
         return self.pm.size
 
-    def constrain(self, flat):
+    def device_data(self, data=None):
+        """``data`` (None: the model's own) as a ``DeviceData`` on the
+        model's device, or None when there is none."""
+        if isinstance(data, DeviceData):
+            return data
+        data = self.data if data is None else data
+        return None if data is None else DeviceData(_device_value(data, self.device))
+
+    def constrain(self, flat, data=None):
         """(N, d) flat unconstrained -> {name: (N, *shape) constrained},
         NCP reconstruction included."""
-        return constrain_flat(self.ir, self.pm, flat, self.data)
+        return constrain_flat(self.ir, self.pm, flat,
+                              self.data if data is None else data)
+
+    def unconstrain(self, xmap):
+        """{name: constrained value of one point} -> (d,) flat, inverting
+        the transforms and the NCP reconstruction z = (x - mu) / sigma,
+        the GRW and affine kinds included (``exmc_tpu/compiler.py:106``).
+        A mu or sigma that names a det node is evaluated over the point's
+        values, the NCP nodes' inverted first."""
+        dev = self.device
+
+        def batch1(v):
+            return torch.as_tensor(np.array(v, np.float32), device=dev).unsqueeze(0)
+
+        xmap = {k: batch1(v) for k, v in xmap.items()}
+        zmap = dict(xmap)
+        val = None
+
+        def ref(v):
+            if not isinstance(v, str):
+                return _const(v, dev)
+            return xmap[v] if v in xmap else val(v)
+
+        def invert(nid, info):
+            mu, sigma, x = _align([ref(info["mu"]), ref(info["sigma"]), xmap[nid]])
+            zmap[nid] = _ncp_invert(info, x, mu, sigma)
+
+        pending = {}
+        for nid, info in self.ncp_info.items():
+            if all(not isinstance(info[k], str) or info[k] in xmap for k in ("mu", "sigma")):
+                invert(nid, info)
+            else:
+                pending[nid] = info
+        if pending:
+            graph = _Graph(self.ir, self.pm, dev, self.data)
+            _, val = graph.resolver(self.pm.unpack(self.pm.to_unconstrained(zmap)), graph.data)
+            for nid, info in pending.items():
+                invert(nid, info)
+        return self.pm.to_unconstrained(zmap)[0]
 
 
 class _Graph:
@@ -309,10 +394,7 @@ class _Graph:
         self.ir = ir
         self.free_ids = {e.id for e in pm.entries}
         prep = self._prep_factory(device)
-        if isinstance(data, dict):
-            self.data = {k: prep(v) for k, v in data.items()}
-        else:
-            self.data = None if data is None else _const(data, device)
+        self.data = _device_value(data, device)
         self.params, self.args, self.values, self.meta = {}, {}, {}, {}
         self.meas = {}
         # False when an op without a CUDA-graph form runs per call (a
@@ -399,17 +481,19 @@ class _Graph:
             return ("dict", {k: prep(v) for k, v in value.items()})
         return ("const", prep(value))
 
-    def value(self, nid):
+    def value(self, nid, data):
+        """An observation's value; ``data`` is the call's compiled data."""
         kind, v = self.values[nid]
         if kind == "data":
-            return _base_data(self.data)
+            return _base_data(data)
         if kind == "keyed":
-            return self.data[v]
+            return data[v]
         return v
 
-    def resolver(self, zmap):
+    def resolver(self, zmap, data):
         """Constrained-value resolver with memoization, applying NCP
-        reconstruction ``mu + sigma * z`` recursively."""
+        reconstruction ``mu + sigma * z`` recursively; "__obs_data"
+        resolves to ``data``, the call's compiled data."""
         memo = {}
         ir = self.ir
 
@@ -418,7 +502,7 @@ class _Graph:
 
         def resolve(ref):
             if ref == OBS_DATA_KEY:
-                return _base_data(self.data)
+                return _base_data(data)
             if ref in memo:
                 return memo[ref]
             node = ir.get_node(ref)
@@ -491,24 +575,24 @@ class _Graph:
         dist = get_dist(target.op[1])
         return dist, _map_params(self.params[target.id], val)
 
-    def obs_term(self, node, val, reduce=True):
+    def obs_term(self, node, val, data, reduce=True):
         """Observation log-likelihood (censored or not) with its meta."""
         dist, params = self._target(node, val)
         if dist.name == "custom":
-            params["__data__"] = self.data
+            params["__data__"] = data
         meta = self.meta[node.id]
-        value, params = _align_dist(dist, self.value(node.id), params)
+        value, params = _align_dist(dist, self.value(node.id, data), params)
         if meta["censored"] is not None:
             lp = CENSORED.log_likelihood(meta["censored"], value, dist, params)
         else:
             lp = dist.logpdf(value, params)
         return self.apply_obs_meta(lp, meta, reduce)
 
-    def meas_obs_term(self, node, val):
+    def meas_obs_term(self, node, val, data):
         """Measurable-lifted observation with its change-of-measure
         Jacobian: x = A^-1 y (matmul) or (y - b) / a (affine)."""
         dist, params = self._target(node, val)
-        value = self.value(node.id)
+        value = self.value(node.id, data)
         kind, *args = self.meas[node.id]
         if kind == "solved":
             x, meas_jac = args
@@ -545,9 +629,10 @@ def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
     ir = graph.ir
     node_ids = sorted(ir.nodes)  # deterministic term order
 
-    def logp(flat):
+    def logp(flat, data=None):
         zmap = pm.unpack(flat)
-        _, val = graph.resolver(zmap)
+        data = graph.data if data is None else _device_value(data, flat.device)
+        _, val = graph.resolver(zmap, data)
         total = flat.new_zeros(flat.shape[:1])
         terms = {}
         for nid in node_ids:
@@ -557,9 +642,9 @@ def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
                 if part == "prior" or node.op[-1].get("likelihood", True) is False:
                     continue
                 if tag == "obs":
-                    term = graph.obs_term(node, val, reduce=not pointwise)
+                    term = graph.obs_term(node, val, data, reduce=not pointwise)
                 else:
-                    term = graph.meas_obs_term(node, val)
+                    term = graph.meas_obs_term(node, val, data)
             elif (tag == "rv" and nid in graph.free_ids and part != "likelihood"
                   and not pointwise):
                 term = graph.rv_prior_term(node, zmap, val)
@@ -575,10 +660,10 @@ def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
 
 
 def _make_value_and_grad(logp):
-    def value_and_grad(flat):
+    def value_and_grad(flat, data=None):
         with torch.enable_grad():
             x = flat.detach().requires_grad_(True)
-            lp = logp(x)
+            lp = logp(x, data)
             (g,) = torch.autograd.grad(lp.sum(), x)
         return lp.detach(), g
 
@@ -594,36 +679,52 @@ class GraphedValueAndGrad:
     replay launches them together. The same kernels run on the same
     inputs, so the results equal the eager call's; each call returns
     fresh tensors (the graph's outputs are overwritten by the next
-    replay). CPU tensors take the eager path."""
+    replay). CPU tensors take the eager path.
+
+    Without ``data`` the graph reads the model's own data as captured
+    constants. With a ``DeviceData`` every data tensor has a static
+    input buffer of its own, keyed with the flat input on the shapes and
+    dtypes of all of them, and filled with ``copy_`` before a replay
+    whenever the call passes another tensor (or one changed in place)
+    than the last one copied there."""
 
     def __init__(self, vag):
         self.eager = vag
         self.graphs = {}
 
-    def __call__(self, flat):
+    def __call__(self, flat, data=None):
         if flat.device.type != "cuda":
-            return self.eager(flat)
-        key = (tuple(flat.shape), flat.dtype, flat.device)
+            return self.eager(flat, data)
+        leaves = [] if data is None else data.leaves()
+        key = (tuple(flat.shape), flat.dtype, flat.device,
+               tuple((tuple(t.shape), t.dtype) for t in leaves))
         if key not in self.graphs:
-            self.graphs[key] = self._capture(flat)
-        x, lp, g, graph = self.graphs[key]
+            self.graphs[key] = self._capture(flat, data)
+        x, bufs, sources, lp, g, graph = self.graphs[key]
         x.copy_(flat)
+        for i, (buf, t) in enumerate(zip(bufs, leaves)):
+            if sources[i] is None or sources[i][0] is not t or sources[i][1] != t._version:
+                buf.copy_(t)
+                # holding the source keeps its identity from being reused
+                sources[i] = (t, t._version)
         graph.replay()
         return lp.clone(), g.clone()
 
-    def _capture(self, flat):
+    def _capture(self, flat, data):
         x = flat.detach().clone()
+        bufs = [] if data is None else [t.clone() for t in data.leaves()]
+        arg = None if data is None else data.with_leaves(bufs)
         stream = torch.cuda.current_stream(flat.device)
         side = torch.cuda.Stream(device=flat.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             for _ in range(2):  # warm autograd and the allocator first
-                self.eager(x)
+                self.eager(x, arg)
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            lp, g = self.eager(x)
-        return x, lp, g, graph
+            lp, g = self.eager(x, arg)
+        return x, bufs, [None] * len(bufs), lp, g, graph
 
 
 def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
@@ -659,14 +760,25 @@ def compile_pointwise(ir: IR, *, ncp: bool = True, device=None) -> Callable:
     return _make_logp(_Graph(rw, pm, dev, rw.data), pm, pointwise=True)
 
 
+def constrainer(ir: IR, pm: PointMap, device, data=None) -> Callable:
+    """``fn((N, d) flat) -> {name: (N, *shape)}``: constrained values with
+    NCP reconstruction, the constants moved to ``device`` once. ``data``
+    overrides ``ir.data``."""
+    graph = _Graph(ir, pm, device, ir.data if data is None else data)
+
+    def constrain(flat):
+        resolve, _ = graph.resolver(pm.unpack(flat), graph.data)
+        n = flat.shape[0]
+        out = {}
+        for e in pm.entries:
+            v = resolve(e.id)
+            out[e.id] = v.expand((n,) + tuple(v.shape[1:])) if v.ndim else v.expand(n)
+        return out
+
+    return constrain
+
+
 def constrain_flat(ir: IR, pm: PointMap, flat, data=None) -> dict:
     """(N, d) flat -> {name: (N, *shape)} constrained values with NCP
     reconstruction. ``data`` overrides ``ir.data``."""
-    graph = _Graph(ir, pm, flat.device, ir.data if data is None else data)
-    resolve, _ = graph.resolver(pm.unpack(flat))
-    n = flat.shape[0]
-    out = {}
-    for e in pm.entries:
-        v = resolve(e.id)
-        out[e.id] = v.expand((n,) + tuple(v.shape[1:])) if v.ndim else v.expand(n)
-    return out
+    return constrainer(ir, pm, flat.device, data)(flat)

@@ -32,9 +32,9 @@ and for groups with an ancillary leg ``u_anc`` (the uniform of the
 inverse-CDF draw; in prior mode the prior draw of sigma itself) and
 ``u_acc2`` (uniform).
 
-Not ported: observation values on the runtime data channel
-(``OBS_DATA_KEY``); ``build_interweave`` refuses them (ROADMAP §1
-item 15).
+Observations on the runtime data channel (``OBS_DATA_KEY``, whole or
+keyed) are read from the run's data at each step, as the compiled
+log-density reads them; the model's own data when the run passes none.
 """
 
 import warnings
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch import math as xm
-from exmc_tpu_torch.compiler import OBS_DATA_KEY, _align_dist, _const
+from exmc_tpu_torch.compiler import OBS_DATA_KEY, _align_dist, _base_data, _const
 from exmc_tpu_torch.dists.base import Distribution, get as get_dist
 from exmc_tpu_torch.point_map import _infer_shape
 from exmc_tpu_torch.transforms import get as get_transform
@@ -452,23 +452,28 @@ def _device_spec(spec, device):
     return spec
 
 
+def _y_runtime(spec, data):
+    """An obs y spec as a (1, *bshape) tensor: the constant, or the
+    run's data (a ``DeviceData``) broadcast to the spec's shape."""
+    if spec[0] == "const":
+        return spec[1]
+    _, key, bshape = spec
+    raw = _base_data(data.value) if key is None else data.value[key]
+    return torch.broadcast_to(raw, (1,) + (tuple(bshape) or (1,)))
+
+
 def build_interweave(model):
-    """``step(q, generator=None, rand=None) -> (q', accept_frac)`` applying
-    one ASIS scale update per eligible group to every chain of the (C, d)
-    batch ``q`` (``accept_frac`` is (C,)), or None when nothing is
-    eligible."""
+    """``step(q, generator=None, rand=None, data=None) -> (q',
+    accept_frac)`` applying one ASIS scale update per eligible group to
+    every chain of the (C, d) batch ``q`` (``accept_frac`` is (C,)), or
+    None when nothing is eligible. ``data`` (a ``DeviceData``; None: the
+    model's own) supplies observations read from the data channel."""
     groups = eligible_groups(model)
     if not groups:
         return None
     dev = model.device
+    own_data = model.device_data()
     for g in groups:
-        specs = [z[3][1] for z in g["zs"] if z[2] == "obs_noise"]
-        specs += [y for a in g["anc"] or () for y, _ in a[3]]
-        if any(s[0] == "data" for s in specs):
-            raise NotImplementedError(
-                f"interweave: scale {g['sigma_id']!r} reads observations on "
-                "the runtime data channel, not ported yet (ROADMAP §1 "
-                "item 15)")
         g["params_t"] = {k: _const(v, dev) for k, v in g["params"].items()}
         g["zs_t"] = [(zoff, zlen, kind, spec if kind != "obs_noise" else
                       (spec[0], _device_spec(spec[1], dev)))
@@ -479,9 +484,10 @@ def build_interweave(model):
                else s) for y, s in obs_info])
             for zoff, zlen, mu_spec, obs_info in g["anc"]]
 
-    def step(q, generator=None, rand=None):
+    def step(q, generator=None, rand=None, data=None):
         c = q.shape[0]
         q = q.clone()
+        data = own_data if data is None else data
 
         def draw(i, name, make):
             return make() if rand is None else rand[i][name]
@@ -501,7 +507,8 @@ def build_interweave(model):
                 if kind == "obs_noise":
                     # SSE of the observed residuals y - mean(q); zoff/zlen
                     # describe the data, not a slice of q
-                    mu_s, (_, y) = spec
+                    mu_s, y_spec = spec
+                    y = _y_runtime(y_spec, data)
                     mu_v = _mean_value(q, mu_s)
                     if torch.is_tensor(mu_v):
                         mu_v = _event(mu_v, y.ndim - 1)
@@ -554,7 +561,8 @@ def build_interweave(model):
                 theta = q[:, zoff:zoff + zlen]
                 mu_v = _mean_value(q, mu_spec)
                 z = (theta - mu_v) / sigma[:, None]
-                for (_, yb), s_spec in obs_info:
+                for y_spec, s_spec in obs_info:
+                    yb = _y_runtime(y_spec, data)
                     nd = yb.ndim - 1
                     if s_spec[0] == "const":
                         s_val = s_spec[1]

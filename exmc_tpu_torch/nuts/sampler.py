@@ -1,5 +1,4 @@
-"""NUTS sampling orchestrator (``exmc_tpu/nuts/sampler.py:77-114,
-184-435,496-1001,1374-1472``).
+"""NUTS sampling orchestrator (``exmc_tpu/nuts/sampler.py``).
 
 Where the JAX package vmaps one chain's pipeline (init search, warmup
 with adaptation, sampling) into one jitted program, the port runs the
@@ -20,20 +19,30 @@ scales in the NUTS dynamics (inverse mass 0) and gives the trajectory
 the analytic conditional metric of their latents. ``dense_mass`` adapts
 a full (d, d) inverse mass per chain (a dense Welford covariance).
 
-Not ported yet (ROADMAP §1 item 9): streaming, ``run_chunked``,
-``warm_start``, ``shared_warmup``, pathfinder and dict inits, and the
-sampler cache.
+Run modes, as in the JAX package: ``data=`` (the runtime data channel,
+``compiler.py``); ``warm_start=stats`` (a ``FINE_TUNE_ITERS`` step-size
+fine-tune on the given metric instead of the warmup); ``shared_warmup``
+(chain 0 warms up alone, every chain samples with its step size and
+metric); ``run_chunked`` (the same pipeline in segments, with an exact
+checkpoint and resume); ``sample_stream`` (a host callback per chunk, or
+every k-th draw from the pipeline loop); dict, array and superchain
+inits; and a cache of samplers keyed on the IR's signature.
+``init="pathfinder"`` waits for the port of ``pathfinder.py``.
 """
 
+import hashlib
 import warnings
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from exmc_tpu_torch.compiler import CompiledModel, compile_logp, constrain_flat
-from exmc_tpu_torch.config import default_dtype
+from exmc_tpu_torch.compiler import CompiledModel, compile_logp, constrainer
+from exmc_tpu_torch.config import default_dtype, prepare_device
+from exmc_tpu_torch.dists.base import Distribution
+from exmc_tpu_torch.dists.composite import Custom
 from exmc_tpu_torch.nuts.interweave import (
     build_conditional_metric,
     build_interweave,
@@ -57,6 +66,7 @@ from exmc_tpu_torch.nuts.step_size import (
 )
 from exmc_tpu_torch.nuts.tree import nuts_transition
 from exmc_tpu_torch.nuts.warmup import build_schedule
+from exmc_tpu_torch.transforms import Transform
 
 DEFAULT_OPTS = dict(
     num_warmup=1000,
@@ -70,6 +80,11 @@ DEFAULT_OPTS = dict(
 # the init-point generator apart from the run's generator
 CHAIN_SEED_STRIDE = 7919
 INIT_SEED_OFFSET = 10_000_019
+# shared warmup: the sampling generator is seeded apart from the
+# warmup's, as the JAX package folds 777_000_111 into the chain keys
+SHARED_SAMPLING_SEED_OFFSET = 777_000_111
+
+FINE_TUNE_ITERS = 50  # warm-start fine-tune window
 
 
 def _warn_if_rescued(rescues):
@@ -197,14 +212,18 @@ def _rescue(vag_fn, q, logp, grad, metric, rescues, generator):
 def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
                       adapt_mass, pooled=False, rescue=False, generator=None,
                       syncs=None, interweave_fn=None, freeze_mask=None,
-                      cond_metric_fn=None):
+                      cond_metric_fn=None, emit_fn=None, emit_every=1,
+                      draw_offset=0):
     """Run the iterations of ``xs`` (see ``_pipeline_xs``) for every
     chain. ``pooled`` merges the Welford moments across all chains at
     each window end; ``rescue`` runs the ensemble rescue at the
     post-window checkpoints. ``interweave_fn`` runs after each
     transition; ``freeze_mask`` (d,) re-zeroes the frozen scales'
     inverse mass at each window end; ``cond_metric_fn(q, inv)`` gives
-    the metric of each transition and eps search.
+    the metric of each transition and eps search. ``emit_fn(i, q,
+    stats)`` receives every ``emit_every``-th post-warmup draw of the
+    run, ``i`` counting draws from the run's first (the segment's first
+    is draw ``draw_offset``).
 
     Returns (carry, draws (C, S, d), stats {name: (C, S)}) for the S
     post-warmup iterations of the segment."""
@@ -212,7 +231,7 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
     q, logp, grad, da, wf, metric, recoveries, rescues = carry
     c, d = q.shape
     dev, dtype = q.device, q.dtype
-    upd, win, caps, in_warm, search, resc, draw_idx = xs
+    upd, win, caps, in_warm, search, resc, _ = xs
     n_draws = int((~in_warm).sum())
     draws = torch.empty(c, n_draws, d, dtype=dtype, device=dev)
     stats = {
@@ -226,6 +245,7 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
     }
     if interweave_fn is not None:
         stats["iw_accept"] = torch.empty(c, n_draws, dtype=dtype, device=dev)
+    k = 0  # post-warmup iterations of the segment so far
     for it in range(len(upd)):
         warm = bool(in_warm[it])
         if rescue and resc[it]:
@@ -280,7 +300,6 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
                 metric = make_metric(inv, dense=metric.dense)
                 wf = welford_init(c, d, dtype, dev, dense=metric.dense)
         if not warm:
-            k = int(draw_idx[it])
             draws[:, k] = q
             for name in ("depth", "n_steps", "diverging", "accept_prob", "energy"):
                 stats[name][:, k] = st[name]
@@ -288,14 +307,58 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
             stats["step_size"][:, k] = eps
             if interweave_fn is not None:
                 stats["iw_accept"][:, k] = iw_acc
+            if emit_fn is not None and (draw_offset + k + 1) % emit_every == 0:
+                emit_fn(draw_offset + k, q, {n: v[:, k] for n, v in stats.items()})
+            k += 1
     carry = Carry(q, logp, grad, da, wf, metric, recoveries, rescues)
     return carry, draws, stats
+
+
+def _flatten(tup, prefix=""):
+    """{name: tensor or bool} of a (nested) NamedTuple such as ``Carry``."""
+    out = {}
+    for name, v in zip(tup._fields, tup):
+        if hasattr(v, "_fields"):
+            out.update(_flatten(v, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = v
+    return out
+
+
+def _unflatten(cls, arrays, device, prefix=""):
+    """Inverse of ``_flatten`` from host arrays, by the NamedTuple's
+    annotations."""
+    vals = []
+    for name in cls._fields:
+        kind = cls.__annotations__[name]
+        key = prefix + name
+        if hasattr(kind, "_fields"):
+            vals.append(_unflatten(kind, arrays, device, key + "."))
+        elif kind is bool:
+            vals.append(bool(arrays[key]))
+        else:
+            vals.append(torch.as_tensor(arrays[key], device=device))
+    return cls(*vals)
+
+
+@dataclass
+class _Pipeline:
+    """What one run of the per-chain pipeline threads through its
+    segments."""
+
+    vag: object
+    carry: Carry
+    xs: tuple
+    num_warmup: int
+    generator: torch.Generator
+    syncs: HostSyncs
+    seg_kw: dict
 
 
 @dataclass
 class NUTSSampler:
     """Reusable sampler over a compiled model. ``last_run`` holds what the
-    most recent ``run`` counted: its host syncs and iterations."""
+    most recent run counted: its host syncs and iterations."""
 
     model: CompiledModel
     num_warmup: int = DEFAULT_OPTS["num_warmup"]
@@ -328,9 +391,6 @@ class NUTSSampler:
             raise ValueError(
                 "gibbs_scales is diag-metric only (freezing is an "
                 "inverse-mass zero on the scale coordinate)")
-        if self.shared_warmup:
-            raise NotImplementedError(
-                "shared_warmup=True is not ported yet (ROADMAP §1 item 9)")
         self._iw_fn = None
         if self.interweave:
             self._iw_fn = build_interweave(self.model)
@@ -365,12 +425,27 @@ class NUTSSampler:
                 self._cond_metric_fn = build_conditional_metric(
                     self.model, frozen_offsets=frozen)
         self._schedule = build_schedule(self.num_warmup, self.max_tree_depth)
+        self._ft_schedule = build_schedule(
+            FINE_TUNE_ITERS, self.max_tree_depth, init_buffer=FINE_TUNE_ITERS,
+            term_buffer=0, early_cap_iters=0)
+
+    def _init_metric(self, c):
+        d, dev = self.model.size, self.model.device
+        if self.dense_mass:
+            return make_metric(
+                torch.eye(d, dtype=default_dtype(), device=dev).repeat(c, 1, 1),
+                dense=True)
+        inv0 = torch.ones(c, d, dtype=default_dtype(), device=dev)
+        if self._freeze_mask is not None:
+            inv0 = inv0 * self._freeze_mask
+        return make_metric(inv0)
 
     def _resolve_inits(self, init, num_chains, seed):
         """Per-chain unconstrained inits: ``("superchain", K)`` (K random
         points, each shared by M = num_chains / K consecutive chains, the
-        grouping ``nested_rhat`` expects) or None (one random point per
-        chain)."""
+        grouping ``nested_rhat`` expects), a named dict of constrained
+        values (all chains start there), a (num_chains, d) array of
+        unconstrained points, or None (one random point per chain)."""
         d, dev = self.model.size, self.model.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed * CHAIN_SEED_STRIDE + INIT_SEED_OFFSET)
@@ -383,49 +458,251 @@ class NUTSSampler:
                     f"divisible by num_superchains ({k})")
             qs = _init_position(gen, (k, d), default_dtype(), dev)
             return qs.repeat_interleave(num_chains // k, dim=0)
-        if init is not None:
+        if isinstance(init, str):
+            if init != "pathfinder":
+                raise ValueError(f"unknown init mode {init!r} "
+                                 "(expected 'pathfinder' or a named dict)")
             raise NotImplementedError(
-                f"init {init!r} is not ported yet; use None or "
-                "('superchain', K) (ROADMAP §1 item 9)")
+                "init='pathfinder' needs the port of pathfinder.py, not "
+                "done yet (ROADMAP §1 item 11); pass a dict, an array or "
+                "('superchain', K)")
+        if isinstance(init, (np.ndarray, torch.Tensor)):
+            q0 = torch.as_tensor(init, dtype=default_dtype(), device=dev)
+            if tuple(q0.shape) != (num_chains, d):
+                raise ValueError(
+                    f"array init must have shape (num_chains, d) = "
+                    f"({num_chains}, {d}), got {tuple(q0.shape)}")
+            return q0.clone()
+        if init is not None:
+            flat0 = self.model.unconstrain(init).to(default_dtype())
+            return flat0.expand(num_chains, d).clone()
         return _init_position(gen, (num_chains, d), default_dtype(), dev)
 
-    def run(self, num_chains=1, seed=0, init=None, return_unconstrained=False):
-        """Warmup + sampling of ``num_chains`` chains. Returns (trace,
-        stats): trace arrays are (chains, samples, *shape) constrained
-        numpy values; stats has the JAX package's keys and shapes."""
-        d = self.model.size
-        if d == 0:
-            return {}, {"note": "model has no free parameters"}
+    def _vag_iw(self, ddata):
+        """The run's value-and-grad and interweave step, with its data
+        (a ``DeviceData``, or None for the model's own) bound."""
+        vag, iw = self.model.value_and_grad, self._iw_fn
+        if ddata is None:
+            return vag, iw
+        return ((lambda q: vag(q, ddata)),
+                None if iw is None else (lambda q, g: iw(q, g, data=ddata)))
+
+    def _start(self, num_chains, seed, init, warm_start, ddata):
+        """Init search and the pipeline's first carry: the warmup of
+        ``_schedule``, or with ``warm_start`` the fine-tune of
+        ``_ft_schedule`` from its step size and inverse mass."""
         dev = self.model.device
-        vag = self.model.value_and_grad
+        vag, iw = self._vag_iw(ddata)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         syncs = HostSyncs()
-
         q_inits = self._resolve_inits(init, num_chains, seed)
         q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
-        if self.dense_mass:
-            metric0 = make_metric(
-                torch.eye(d, dtype=q0.dtype, device=dev).repeat(num_chains, 1, 1),
-                dense=True)
+        seg_kw = dict(interweave_fn=iw, freeze_mask=self._freeze_mask,
+                      cond_metric_fn=self._cond_metric_fn)
+        if warm_start is None:
+            carry = _pipeline_init(vag, q0, logp0, grad0,
+                                   self._init_metric(num_chains),
+                                   init_search=(self.num_warmup == 0),
+                                   generator=gen, syncs=syncs)
+            schedule, xs = self._schedule, _pipeline_xs(
+                self._schedule, self.num_samples, self.max_tree_depth)
+            seg_kw.update(adapt_mass=self.adapt_mass,
+                          pooled=self.pooled_adaptation,
+                          rescue=self.ensemble_rescue)
         else:
-            inv0 = torch.ones(num_chains, d, dtype=q0.dtype, device=dev)
+            k = 2 if self.dense_mass else 1
+            eps = torch.as_tensor(warm_start["step_size"], dtype=default_dtype(),
+                                  device=dev).expand(num_chains).clone()
+            inv = torch.as_tensor(warm_start["inv_mass"], dtype=default_dtype(),
+                                  device=dev)
+            inv = inv.expand((num_chains,) + tuple(inv.shape[-k:])).clone()
             if self._freeze_mask is not None:
-                inv0 = inv0 * self._freeze_mask
-            metric0 = make_metric(inv0)
-        carry = _pipeline_init(vag, q0, logp0, grad0, metric0,
+                # tuning from a run without gibbs_scales has nonzero
+                # entries on the frozen scales: re-freeze them
+                inv = inv * self._freeze_mask
+            carry = _pipeline_init(vag, q0, logp0, grad0,
+                                   make_metric(inv, dense=self.dense_mass),
+                                   eps0=eps, generator=gen, syncs=syncs)
+            schedule, xs = self._ft_schedule, _pipeline_xs(
+                self._ft_schedule, self.num_samples, self.max_tree_depth,
+                initial_search=False)
+            seg_kw.update(adapt_mass=False, pooled=False, rescue=False)
+        return _Pipeline(vag, carry, xs, schedule.num_warmup, gen, syncs, seg_kw)
+
+    def _segment(self, p: _Pipeline, lo, hi, emit=None, every=1):
+        """Iterations lo..hi of the pipeline ``p``; returns its draws and
+        stats and moves ``p.carry`` on."""
+        xs = tuple(a[lo:hi] for a in p.xs)
+        p.carry, draws, stats = _pipeline_segment(
+            p.vag, p.carry, xs, self.target_accept, self.max_tree_depth,
+            generator=p.generator, syncs=p.syncs, emit_fn=emit,
+            emit_every=every, draw_offset=max(lo - p.num_warmup, 0), **p.seg_kw)
+        return draws, stats
+
+    def _run_shared(self, num_chains, seed, init, ddata, stream_cb, every):
+        """Shared warmup: chain 0 runs the warmup alone, then every chain
+        samples from its own init with chain 0's step size and metric,
+        under a generator seeded apart from the warmup's."""
+        dev = self.model.device
+        vag, _ = self._vag_iw(ddata)
+        syncs = HostSyncs()
+        q_inits = self._resolve_inits(init, num_chains, seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q0, logp0, grad0 = _find_valid_init(vag, q_inits[:1], gen, syncs=syncs)
+        carry = _pipeline_init(vag, q0, logp0, grad0, self._init_metric(1),
                                init_search=(self.num_warmup == 0),
                                generator=gen, syncs=syncs)
-        xs = _pipeline_xs(self._schedule, self.num_samples, self.max_tree_depth)
-        carry, draws, st = _pipeline_segment(
-            vag, carry, xs, self.target_accept, self.max_tree_depth,
-            self.adapt_mass, pooled=self.pooled_adaptation,
-            rescue=self.ensemble_rescue, generator=gen, syncs=syncs,
-            interweave_fn=self._iw_fn, freeze_mask=self._freeze_mask,
-            cond_metric_fn=self._cond_metric_fn)
-        self.last_run = {"host_syncs": syncs.count,
-                         "iterations": self.num_warmup + self.num_samples}
+        carry, _, _ = _pipeline_segment(
+            vag, carry, _pipeline_xs(self._schedule, 0, self.max_tree_depth),
+            self.target_accept, self.max_tree_depth, self.adapt_mass,
+            generator=gen, syncs=syncs)
+        eps = da_finalize(carry.da).expand(num_chains).clone()
+        inv = carry.metric.inv.expand((num_chains,) + carry.metric.inv.shape[1:]).clone()
 
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + SHARED_SAMPLING_SEED_OFFSET)
+        q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
+        carry = _pipeline_init(vag, q0, logp0, grad0,
+                               make_metric(inv, dense=self.dense_mass),
+                               eps0=eps, generator=gen, syncs=syncs)
+        p = _Pipeline(vag, carry, _pipeline_xs(build_schedule(0), self.num_samples,
+                                               self.max_tree_depth),
+                      0, gen, syncs, dict(adapt_mass=False))
+        draws, stats = self._segment(p, 0, self.num_samples,
+                                     self._emitter(stream_cb, ddata, syncs), every)
+        return p, draws, stats
+
+    def _emitter(self, callback, ddata, syncs):
+        """The pipeline's ``emit_fn`` for a host ``callback(i, point,
+        stats)``: the draw is constrained on the device, then copied to
+        the host at once (one sync, counted)."""
+        if callback is None:
+            return None
+        constrain = constrainer(self.model.ir, self.model.pm, self.model.device,
+                                self.model.data if ddata is None else ddata)
+        names = [e.id for e in self.model.pm.entries]
+
+        def emit(i, q, stats):
+            vals = {**constrain(q), **stats}
+            host = {k: v.to("cpu", non_blocking=True) for k, v in vals.items()}
+            if q.device.type == "cuda":
+                torch.cuda.current_stream(q.device).synchronize()
+            syncs.count += 1
+            host = {k: v.numpy() for k, v in host.items()}
+            callback(i, {k: host[k] for k in names}, {k: host[k] for k in stats})
+
+        return emit
+
+    def run(self, num_chains=1, seed=0, init=None, warm_start=None, data=None,
+            return_unconstrained=False, stream_cb=None, stream_every=1):
+        """Warmup + sampling of ``num_chains`` chains. Returns (trace,
+        stats): trace arrays are (chains, samples, *shape) constrained
+        numpy values; stats has the JAX package's keys and shapes.
+
+        ``data`` replaces the model's own data for this run;
+        ``warm_start`` ({"step_size", "inv_mass"}, e.g. a previous run's
+        stats) replaces the warmup by a ``FINE_TUNE_ITERS`` step-size
+        fine-tune on that metric. ``stream_cb(i, point, stats)`` receives
+        every ``stream_every``-th draw as it is made: (num_chains, ...)
+        constrained values and (num_chains,) stats."""
+        if self.model.size == 0:
+            return {}, {"note": "model has no free parameters"}
+        ddata = None if data is None else self.model.device_data(data)
+        shared = self.shared_warmup and warm_start is None
+        if shared:
+            p, draws, st = self._run_shared(num_chains, seed, init, ddata,
+                                            stream_cb, stream_every)
+        else:
+            p = self._start(num_chains, seed, init, warm_start, ddata)
+            draws, st = self._segment(p, 0, len(p.xs[0]),
+                                      self._emitter(stream_cb, ddata, p.syncs),
+                                      stream_every)
+        # a shared warmup's iterations ran on chain 0 before p's
+        self.last_run = {"host_syncs": p.syncs.count,
+                         "iterations": len(p.xs[0]) + (self.num_warmup if shared else 0)}
+        return self._finish(p.carry, draws, st, ddata, return_unconstrained)
+
+    def run_chunked(self, num_chains=1, chunk_iters=200, seed=0, init=None,
+                    data=None, warm_start=None, return_unconstrained=False,
+                    progress=False, callback=None, checkpoint_path=None,
+                    resume_from=None):
+        """The pipeline of ``run`` in segments of ``chunk_iters``
+        iterations; on one device the draws and stats equal ``run``'s bit
+        for bit.
+
+        ``callback(start_index, trace_chunk, stats_chunk)`` runs after
+        each chunk that holds post-warmup draws. ``checkpoint_path``: after
+        every chunk (and its callback), the whole state is saved there —
+        the carry, the generator's state, the host-sync count and the
+        draws and stats so far — and ``resume_from`` continues such a
+        checkpoint to the same result as the uninterrupted run."""
+        if self.shared_warmup:
+            raise ValueError("run_chunked runs the per-chain pipeline; "
+                             "shared_warmup=True runs through run()")
+        if self.model.size == 0:
+            return {}, {"note": "model has no free parameters"}
+        ddata = None if data is None else self.model.device_data(data)
+        dev = self.model.device
+        if resume_from is None:
+            p = self._start(num_chains, seed, init, warm_start, ddata)
+            done, draws_parts, stats_parts = 0, [], []
+        else:
+            # the pipeline's structure (xs, options) from a start whose
+            # carry and generator the checkpoint then replaces
+            with np.load(resume_from) as z:
+                arrays = {k: z[k] for k in z.files}
+            p = self._start(num_chains, seed, None, warm_start, ddata)
+            p.carry = _unflatten(Carry, {k[6:]: v for k, v in arrays.items()
+                                         if k.startswith("carry.")}, dev)
+            p.generator.set_state(torch.as_tensor(arrays["generator"]))
+            p.syncs.count = int(arrays["host_syncs"])
+            done = int(arrays["done"])
+            draws_parts = [torch.as_tensor(arrays["draws"], device=dev)]
+            stats_parts = [{k[5:]: torch.as_tensor(v, device=dev)
+                            for k, v in arrays.items() if k.startswith("stat.")}]
+        total = len(p.xs[0])
+        while done < total:
+            end = min(done + chunk_iters, total)
+            draws, stats = self._segment(p, done, end)
+            draws_parts.append(draws)
+            stats_parts.append(stats)
+            if callback is not None and draws.shape[1] > 0:
+                cb_stats = {k: v.cpu().numpy() for k, v in stats.items()}
+                callback(max(done - p.num_warmup, 0),
+                         draws.cpu().numpy() if return_unconstrained
+                         else self.constrain_trace(draws, ddata), cb_stats)
+            done = end
+            if checkpoint_path is not None:
+                self._save_chunk_state(checkpoint_path, p, done, draws_parts,
+                                       stats_parts)
+            if progress:
+                print(f"  chunk {done}/{total}", flush=True)
+        draws = torch.cat(draws_parts, dim=1)
+        stats = {k: torch.cat([s[k] for s in stats_parts], dim=1)
+                 for k in stats_parts[0]}
+        self.last_run = {"host_syncs": p.syncs.count, "iterations": total}
+        return self._finish(p.carry, draws, stats, ddata, return_unconstrained)
+
+    @staticmethod
+    def _save_chunk_state(path, p: _Pipeline, done, draws_parts, stats_parts):
+        """The carry, the generator's state, the host-sync count, the
+        progress index and the draws and stats so far, in one .npz."""
+        payload = {f"carry.{k}": (v.cpu().numpy() if torch.is_tensor(v)
+                                  else np.asarray(v))
+                   for k, v in _flatten(p.carry).items()}
+        payload["generator"] = p.generator.get_state().numpy()
+        payload["host_syncs"] = np.asarray(p.syncs.count)
+        payload["done"] = np.asarray(done)
+        payload["draws"] = torch.cat(draws_parts, dim=1).cpu().numpy()
+        for k in stats_parts[0]:
+            payload[f"stat.{k}"] = torch.cat([s[k] for s in stats_parts],
+                                             dim=1).cpu().numpy()
+        with open(path, "wb") as f:
+            np.savez(f, **payload)
+
+    def _finish(self, carry, draws, st, ddata, return_unconstrained):
         stats = {k: v.cpu().numpy() for k, v in st.items()}
         stats["step_size"] = da_finalize(carry.da).cpu().numpy()
         stats["inv_mass"] = carry.metric.inv.cpu().numpy()
@@ -433,20 +710,106 @@ class NUTSSampler:
         stats["rescues"] = carry.rescues.cpu().numpy()
         stats["divergences"] = stats["diverging"].sum(axis=-1)
         _warn_if_rescued(stats["rescues"])
-
         if return_unconstrained:
             return draws.cpu().numpy(), stats
-        return self.constrain_trace(draws), stats
+        return self.constrain_trace(draws, ddata), stats
 
-    def constrain_trace(self, draws):
+    def constrain_trace(self, draws, data=None):
         """(chains, samples, d) unconstrained -> named constrained trace
-        of (chains, samples, *shape) numpy arrays."""
+        of (chains, samples, *shape) numpy arrays; ``data`` (None: the
+        model's own) feeds refs to the data channel."""
         draws = torch.as_tensor(draws, dtype=default_dtype(), device=self.model.device)
         c, s, d = draws.shape
-        out = constrain_flat(self.model.ir, self.model.pm, draws.reshape(c * s, d),
-                             self.model.data)
+        out = constrainer(self.model.ir, self.model.pm, self.model.device,
+                          self.model.data if data is None else data)(
+            draws.reshape(c * s, d))
         return {k: v.reshape((c, s) + tuple(v.shape[1:])).cpu().numpy()
                 for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Sampler cache: repeated sample() calls on a structurally identical model
+# reuse the compiled sampler (its model and CUDA graphs) instead of
+# compiling again.
+# ---------------------------------------------------------------------------
+
+_SAMPLER_CACHE = OrderedDict()
+_SAMPLER_CACHE_MAX = 8
+
+
+def clear_sampler_cache():
+    _SAMPLER_CACHE.clear()
+
+
+def _hash_obj(h, x, state):
+    """Feed one IR op component into the hash: arrays and tensors by
+    value, registered dists by name, transforms by name and bounds.
+    Custom dists and callables (torch code) hash by identity, which
+    marks the signature ``state["stable"] = False``: it holds within one
+    process only (the cache holds the IR, so the identity is not
+    reused while the entry lives)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    if isinstance(x, np.ndarray):
+        h.update(b"a")
+        h.update(str((x.shape, str(x.dtype))).encode())
+        h.update(np.ascontiguousarray(x).tobytes())
+    elif isinstance(x, (list, tuple)):
+        h.update(b"l")
+        for e in x:
+            _hash_obj(h, e, state)
+    elif isinstance(x, dict):
+        h.update(b"d")
+        for k in sorted(x, key=repr):
+            _hash_obj(h, k, state)
+            _hash_obj(h, x[k], state)
+    elif isinstance(x, Distribution) and not isinstance(x, Custom):
+        h.update(f"dist:{x.name}".encode())
+    elif isinstance(x, Transform):
+        h.update(f"tf:{x.name}".encode())
+        _hash_obj(h, dict(vars(x)), state)
+    elif callable(x) or isinstance(x, Custom):
+        h.update(f"id{id(x)}".encode())
+        state["stable"] = False
+    else:
+        r = repr(x)
+        if " at 0x" in r:  # default object repr: address = identity
+            state["stable"] = False
+        h.update(r.encode())
+
+
+def _data_leaves(data):
+    if data is None:
+        return []
+    if isinstance(data, dict):
+        return [(k, np.asarray(data[k])) for k in sorted(data)]
+    return [(None, np.asarray(data))]
+
+
+def ir_fingerprint(ir):
+    """(signature, stable): structural + constant signature of an IR.
+    Two IRs with the same signature compile to the same model: node
+    structure, dist names, constant params and inline obs values hash by
+    value; ``Builder.data`` by its keys, shapes and dtypes only (its
+    values reach a run through the data channel). ``stable`` is False
+    when a component (a Custom dist, a torch callable) hashed by object
+    identity."""
+    h = hashlib.sha256()
+    state = {"stable": True}
+    for nid in sorted(ir.nodes):
+        node = ir.nodes[nid]
+        h.update(nid.encode())
+        _hash_obj(h, node.op, state)
+        _hash_obj(h, node.deps, state)
+        _hash_obj(h, node.shape, state)
+    for k, arr in _data_leaves(ir.data):
+        h.update(f"data{k}{arr.shape}{arr.dtype}".encode())
+    return h.hexdigest(), state["stable"]
+
+
+def ir_signature(ir) -> str:
+    """The signature half of :func:`ir_fingerprint`."""
+    return ir_fingerprint(ir)[0]
 
 
 _SAMPLER_OPT_KEYS = (
@@ -465,24 +828,85 @@ _SAMPLER_OPT_KEYS = (
 
 
 def _make_sampler(ir_or_model, ncp=True, device=None, **opts) -> NUTSSampler:
+    """A sampler over a compiled model, or over an IR through the LRU
+    cache keyed on (signature, ncp, options, device)."""
     unknown = set(opts) - set(_SAMPLER_OPT_KEYS)
     if unknown:
         raise TypeError(f"unknown sampler options: {sorted(unknown)}")
     if isinstance(ir_or_model, CompiledModel):
         return NUTSSampler(model=ir_or_model, **opts)
-    return NUTSSampler(model=compile_logp(ir_or_model, ncp=ncp, device=device),
-                       **opts)
+    dev = prepare_device(device)
+    key = (ir_signature(ir_or_model), bool(ncp), tuple(sorted(opts.items())), str(dev))
+    hit = _SAMPLER_CACHE.get(key)
+    if hit is not None:
+        _SAMPLER_CACHE.move_to_end(key)
+        return hit
+    sampler = NUTSSampler(model=compile_logp(ir_or_model, ncp=ncp, device=dev),
+                          **opts)
+    _SAMPLER_CACHE[key] = sampler
+    while len(_SAMPLER_CACHE) > _SAMPLER_CACHE_MAX:
+        _SAMPLER_CACHE.popitem(last=False)
+    return sampler
 
 
-def sample(ir, *, num_chains=1, seed=0, init=None, ncp=True, device=None,
-           return_unconstrained=False, **opts):
+def _check_engine(engine):
+    if engine != "nuts":
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported yet (ROADMAP §1 item 11: "
+            "chees.py and meads.py); the port runs engine='nuts'")
+
+
+def sample(ir, *, num_chains=1, seed=0, init=None, warm_start=None, data=None,
+           ncp=True, device=None, return_unconstrained=False, engine="nuts",
+           **opts):
     """Multi-chain NUTS on ``device`` (default ``"cuda"``). Returns
     (trace, stats); trace arrays are (chains, samples, *shape).
+
+    A sampler compiled for a structurally identical IR is reused (the
+    cache); this IR's own ``Builder.data`` then rides the data channel,
+    so a cached sampler samples this IR's observations.
 
     NOTE on ``ensemble_rescue`` (default True, >= 5 chains): during
     warmup, chains whose logp sits >= max(50, 1.5*sqrt(d)) nats below
     the 75th-percentile chain are teleported onto it at window ends;
     pass ``ensemble_rescue=False`` when hunting multimodality."""
+    _check_engine(engine)
     sampler = _make_sampler(ir, ncp=ncp, device=device, **opts)
+    if data is None and not isinstance(ir, CompiledModel):
+        data = ir.data
     return sampler.run(num_chains=num_chains, seed=seed, init=init,
+                       warm_start=warm_start, data=data,
                        return_unconstrained=return_unconstrained)
+
+
+def sample_chains(ir, num_chains=4, **kwargs):
+    """Multi-chain NUTS: ``sample`` with four chains by default."""
+    return sample(ir, num_chains=num_chains, **kwargs)
+
+
+def sample_stream(ir, callback, *, num_chains=1, chunk_size=100, seed=0,
+                  init=None, data=None, ncp=True, device=None, every=None,
+                  **opts):
+    """Streaming sampling. Returns the full (trace, stats) like
+    ``sample``.
+
+    * default (``every=None``): ``run_chunked`` in chunks of
+      ``chunk_size`` iterations, with ``callback(start_index,
+      constrained_chunk, stats_chunk)`` after each chunk that holds
+      post-warmup draws.
+    * ``every=k``: ``callback(draw_index, constrained_point, stats)`` for
+      every k-th post-warmup draw, with the (num_chains, ...) batch of
+      that draw, called from the pipeline loop as the draw is made (the
+      JAX package's io_callback); it costs one copy to the host per
+      call and no other sync."""
+    if data is None and not isinstance(ir, CompiledModel):
+        data = ir.data
+    sampler = _make_sampler(ir, ncp=ncp, device=device, **opts)
+    if every is not None:
+        if not (isinstance(every, int) and every >= 1):
+            raise ValueError(f"every must be a positive int, got {every!r}")
+        return sampler.run(num_chains=num_chains, seed=seed, init=init,
+                           data=data, stream_cb=callback, stream_every=every)
+    return sampler.run_chunked(num_chains=num_chains, chunk_iters=chunk_size,
+                               seed=seed, init=init, data=data,
+                               callback=callback)

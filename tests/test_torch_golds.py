@@ -1,10 +1,12 @@
-"""The 46 non-Stan gold standards in the port against the JAX package's:
-each port IR compiles on the CPU with the JAX gold's flat size and
-layout; its log-density and gradient at 4 seeded flat points, and its
-constrained values there, equal the JAX compiled gold's; its targets
-and options equal the JAX module's (the seven stored as constants
-included). Plus the battery's coverage of every distribution and a
-short CPU run of the fast subset through the port's ``validate``.
+"""The JAX battery's 51 gold standards in the port against the JAX
+package's (the five ``stan_*`` built through each package's own Stan
+frontend): each port IR compiles on the CPU with the JAX gold's flat
+size and layout; its log-density and gradient at 4 seeded flat points,
+and its constrained values there, equal the JAX compiled gold's; its
+targets and options equal the JAX module's (the eight stored as
+constants included, ``stan_logistic_d21``'s Laplace + importance-sampling
+target among them). Plus the battery's coverage of every distribution
+and a short CPU run of the fast subset through the port's ``validate``.
 
 Tolerance: logp and gradient within 2e-5 of max(1, |value|) per point
 (float32 sums of up to 1000 terms in another order); constrained values
@@ -47,11 +49,12 @@ def _compiled(name):
 
 
 def test_the_port_has_the_46_non_stan_golds():
-    jnames = [jvalidation._all_gold_standards()[i].__name__
-              for i in range(len(jvalidation._all_gold_standards()))]
+    """And the five Stan golds: all 51, in the JAX battery's order."""
+    jnames = [m.__name__ for m in jvalidation._all_gold_standards()]
     assert len(jnames) == 51
-    assert len(NAMES) == 46
-    assert {TMAKERS[n].__name__ for n in NAMES} == set(jnames) - STAN
+    assert len(NAMES) == 51
+    assert [TMAKERS[n].__name__ for n in NAMES] == jnames
+    assert STAN <= set(NAMES)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -95,7 +98,7 @@ def test_heavy_targets_are_the_stored_ones():
     assert set(tgold.HEAVY_TARGETS) == {
         "radon_varying_intercept", "kidiq_regression", "crossed_random_effects_lmm",
         "avtest_binomial_glmm", "kilpisjarvi_real_regression", "kilpisjarvi_ordinal",
-        "diabetes_real_logistic"}
+        "diabetes_real_logistic", "stan_logistic_d21"}
 
 
 def test_battery_covers_every_distribution():
