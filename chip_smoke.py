@@ -40,9 +40,21 @@ Phases, each printing JSON lines:
                  bit for bit equal to run, sample_stream in chunks and
                  every k draws, the data channel with a warm-started refit
                  through the sampler cache, and shared warmup;
+               * engines: ChEES, SNAPER and MEADS on scaled32,
+                 corrblock128 and eight schools at 1024 chains, 500
+                 warmup + 500 draws (exmc_tpu_torch/benchmarks/engines.py),
+                 one line per run with its gates; a MEADS run that falls
+                 back from its Pathfinder init fails;
+               * vi: the approximate engines on stan_logistic_d21 (the
+                 CLI's optimize and variational as subprocesses; fit_map
+                 on the card equal to the CPU's; Laplace with PSIR; ADVI
+                 with SGD and Adam; Pathfinder diag, lowrank and lowrank
+                 with PSIR), each held to the JAX package's result, and
+                 NUTS from init="pathfinder" on the Stan eight-schools
+                 NCP program;
                then one summary line each for the suite, the golds, the
-               entry checks and the pool (on an H100 80GB HBM3 at 700 W
-               the pool takes ~400 s and the whole script ~460 s);
+               entry checks, the engines, the approximate engines and the
+               pool;
   6. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
@@ -61,7 +73,7 @@ import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
-from exmc_tpu_torch.benchmarks import entry, suite, validation
+from exmc_tpu_torch.benchmarks import engines, entry, suite, validation
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -90,10 +102,22 @@ SUITE_ITERS = (150, 150)
 POOL_WORKERS = 4
 # Estimated seconds of the longest tasks in the pool: their host syncs in
 # PR 3's card runs (the suite's at 150+150, the golds' under the card
-# recipe) at ~2.3 ms a sync, the entry tasks' from their runs' sizes.
+# recipe) at ~2.3 ms a sync, the entry tasks' from their runs' sizes,
+# the engine tasks' from their runs alone on the card.
 # Only the order matters: the long tasks never start last.
 POOL_COST_S = {
     ("suite", "eight_schools"): 250.0,
+    ("engines", "approx"): 40.0,
+    ("engines", "eight_schools:chees"): 30.0,
+    ("engines", "pathfinder_init"): 25.0,
+    ("engines", "eight_schools:snaper"): 22.0,
+    ("engines", "corrblock128:meads"): 10.0,
+    ("engines", "scaled32:meads"): 10.0,
+    ("engines", "eight_schools:meads"): 10.0,
+    ("engines", "scaled32:snaper"): 8.0,
+    ("engines", "corrblock128:snaper"): 8.0,
+    ("engines", "corrblock128:chees"): 7.0,
+    ("engines", "scaled32:chees"): 6.0,
     ("gold", "grw_kalman_t1000"): 114.0,
     ("entry", "chunked_stream"): 110.0,
     ("suite", "sv"): 95.0,
@@ -116,6 +140,8 @@ POOL_COST_S = {
     ("entry", "shared_warmup"): 15.0,
 }
 N_GOLDS = 51
+N_ENGINE_ROWS = 9        # three engines on three models
+N_VI_ROWS = 11           # the CLI, 3 fit_map, laplace, 2 ADVI, 3 Pathfinder, the init
 
 
 def emit(obj):
@@ -255,11 +281,13 @@ def pool_tasks():
     rest in suite, battery and entry order."""
     tasks = ([("suite", m) for m in suite.MODELS]
              + [("gold", validation.gold_name(m)) for m in validation.all_gold_standards()]
-             + [("entry", t) for t in entry.TASKS])
+             + [("entry", t) for t in entry.TASKS]
+             + [("engines", t) for t in engines.TASKS])
     return sorted(tasks, key=lambda t: -POOL_COST_S.get(t, 0.0))
 
 
-PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry"}
+PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry", "engines": "engines"}
+POOL_PHASES = ("suite", "golds", "entry", "engines", "vi")
 
 
 def run_task(task):
@@ -271,7 +299,8 @@ def run_task(task):
     try:
         return _run_task(kind, name)
     except Exception:  # noqa: BLE001 - every task's fault is reported
-        return [{"phase": PHASE_OF[kind], "task": name, "error": traceback.format_exc()[-3000:],
+        phase = "vi" if name in ("approx", "pathfinder_init") else PHASE_OF[kind]
+        return [{"phase": phase, "task": name, "error": traceback.format_exc()[-3000:],
                  "fused_leapfrog_gaussian_launches": 0}]
 
 
@@ -286,6 +315,13 @@ def _run_task(kind, name):
         res = suite.run_checked(name, *SUITE_ITERS, device="cuda")
         return [{"phase": "suite", **res,
                  "fused_leapfrog_gaussian_launches": fused_leapfrog_gaussian.launches}]
+    if kind == "engines":
+        fused_leapfrog_gaussian.launches = 0
+        lines = [{"task": name, **res} for res in engines.run_task(name, "cuda")]
+        for i, line in enumerate(lines):
+            line["fused_leapfrog_gaussian_launches"] = (
+                fused_leapfrog_gaussian.launches if i == 0 else 0)
+        return lines
     return [{"phase": "entry", **res} for res in entry.run_check(name, "cuda")]
 
 
@@ -304,7 +340,7 @@ def phase_pool(workers=POOL_WORKERS):
                 emit(line)
                 lines.append(line)
     seconds = time.perf_counter() - t0
-    by_phase = {p: [x for x in lines if x["phase"] == p] for p in ("suite", "golds", "entry")}
+    by_phase = {p: [x for x in lines if x["phase"] == p] for p in POOL_PHASES}
     launches = {p: sum(x.pop("fused_leapfrog_gaussian_launches") for x in xs)
                 for p, xs in by_phase.items()}
     failures = {p: [f"{x['task']}: {x['error']}" for x in xs if "error" in x]
@@ -347,6 +383,24 @@ def phase_pool(workers=POOL_WORKERS):
     emit({"phase": "entry_summary", "n_pass": n_entry - len(failures["entry"]),
           "n": n_entry,
           "fused_leapfrog_gaussian_launches": launches["entry"]})
+
+    for p in ("engines", "vi"):
+        for res in by_phase[p]:
+            if not res["ok"]:
+                name = res.get("check") or f"{res['model']}:{res['engine']}"
+                failures[p].append(f"{name}: {'; '.join(res['failures'])}")
+    eng = by_phase["engines"]
+    n_eng = len(eng) + n_errors["engines"]
+    emit({"phase": "engines_summary", "n_pass": n_eng - len(failures["engines"]),
+          "n": n_eng, "gated": sum(r["gated"] for r in eng),
+          "rows": [{k: r.get(k) for k in ("model", "engine", "wall_s", "min_ess",
+                                          "min_ess_per_s", "max_rhat", "syncs_per_iter",
+                                          "num_steps_mean", "peak_mb", "ok")}
+                   for r in eng],
+          "fused_leapfrog_gaussian_launches": launches["engines"]})
+    n_vi = len(by_phase["vi"]) + n_errors["vi"]
+    emit({"phase": "vi_summary", "n_pass": n_vi - len(failures["vi"]), "n": n_vi,
+          "fused_leapfrog_gaussian_launches": launches["vi"]})
     emit({"phase": "pool_summary", "seconds": seconds, "workers": workers,
           "tasks": len(tasks)})
 
@@ -357,6 +411,9 @@ def phase_pool(workers=POOL_WORKERS):
     for p, fs in failures.items():
         if fs:
             fail(f"{p}: " + " | ".join(fs))
+    if n_eng != N_ENGINE_ROWS or n_vi != N_VI_ROWS:
+        fail(f"engines/vi: {n_eng} and {n_vi} results, expected {N_ENGINE_ROWS} "
+             f"and {N_VI_ROWS}")
     return launches
 
 
@@ -405,6 +462,8 @@ def main(argv=None):
         "suite_path_launches": pool_launches["suite"],
         "gold_path_launches": pool_launches["golds"],
         "entry_path_launches": pool_launches["entry"],
+        "engines_path_launches": pool_launches["engines"],
+        "vi_path_launches": pool_launches["vi"],
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

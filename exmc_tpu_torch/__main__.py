@@ -7,13 +7,21 @@ frontend:
     python -m exmc_tpu_torch check model.stan --data data.json
     python -m exmc_tpu_torch summary fit.npz
 
-``sample`` and ``check`` run on the CUDA card unless ``--device cpu`` is
-given. Data files are CmdStan-style JSON: {"N": 8, "y": [...], ...}.
-Fits are written either as .npz (posterior/<name> + sample_stats/<name>
-arrays, compact, lossless) or .json (nested lists, interoperable), the
-JAX package's layout, so either CLI's ``summary`` reads the other's
-fits. The ``optimize`` and ``variational`` commands and the engines
-other than NUTS wait for their modules' port (ROADMAP §1 item 11).
+    python -m exmc_tpu_torch sample model.stan --data data.json \
+        --engine chees --chains 64 --output fit.npz
+    python -m exmc_tpu_torch optimize model.stan --data data.json
+    python -m exmc_tpu_torch variational model.stan --data data.json \
+        --output advi.npz
+
+``sample``, ``optimize``, ``variational`` and ``check`` run on the CUDA
+card unless ``--device cpu`` is given. ``--engine`` picks NUTS (default)
+or the ensemble engines ChEES, SNAPER and MEADS; ``optimize`` prints the
+MAP point and exits 1 when L-BFGS did not converge; ``variational`` fits
+mean-field ADVI with Adam. Data files are CmdStan-style JSON: {"N": 8,
+"y": [...], ...}. Fits are written either as .npz (posterior/<name> +
+sample_stats/<name> arrays, compact, lossless) or .json (nested lists,
+interoperable), the JAX package's layout, so either CLI's ``summary``
+reads the other's fits.
 """
 
 import argparse
@@ -21,10 +29,6 @@ import json
 import sys
 
 import numpy as np
-
-
-NOT_PORTED = ("is not ported yet: it waits for the port of {} (ROADMAP §1 "
-              "item 11); the port runs 'sample' with --engine nuts")
 
 
 def _load_data(path):
@@ -99,14 +103,12 @@ def _cmd_sample(args):
     from exmc_tpu_torch.stan import frontend
     from exmc_tpu_torch.trace_utils import to_inference_dict
 
-    if args.engine != "nuts":
-        print(f"FAIL: engine {args.engine!r} "
-              + NOT_PORTED.format("chees.py and meads.py"), file=sys.stderr)
-        return 2
     with open(args.model) as f:
         code = f.read()
     data = _load_data(args.data)
-    # unset tuning flags are omitted: the sampler keeps its defaults
+    # unset tuning flags are omitted, so each engine keeps its own
+    # defaults (NUTS: warmup 1000, target_accept 0.8; ChEES/SNAPER/MEADS:
+    # warmup 500, ChEES target_accept 0.651, MEADS self-tuning)
     opts = dict(
         num_chains=args.chains,
         num_samples=args.samples,
@@ -116,10 +118,20 @@ def _cmd_sample(args):
     )
     if args.warmup is not None:
         opts["num_warmup"] = args.warmup
+    if args.engine != "nuts":
+        opts["engine"] = args.engine
     if args.target_accept is not None:
-        opts["target_accept"] = args.target_accept
+        if args.engine == "meads":
+            print("note: --target-accept is ignored by engine 'meads' "
+                  "(self-tuning GHMC)", file=sys.stderr)
+        else:
+            opts["target_accept"] = args.target_accept
     if args.max_depth is not None:
-        opts["max_tree_depth"] = args.max_depth
+        if args.engine == "nuts":
+            opts["max_tree_depth"] = args.max_depth
+        else:
+            print(f"note: --max-depth is ignored by engine "
+                  f"{args.engine!r}", file=sys.stderr)
     trace, stats = frontend.sample(code, data, **opts)
     _print_fit_report(trace, stats)
     if args.output:
@@ -141,13 +153,43 @@ def _cmd_sample(args):
 
 
 def _cmd_optimize(args):
-    print("FAIL: 'optimize' " + NOT_PORTED.format("optimize.py"), file=sys.stderr)
-    return 2
+    from exmc_tpu_torch.optimize import fit_map
+    from exmc_tpu_torch.stan import frontend
+
+    with open(args.model) as f:
+        code = f.read()
+    ir = frontend.compile(code, _load_data(args.data))
+    point, info = fit_map(ir, seed=args.seed, jacobian=args.jacobian,
+                          max_iters=args.iters, device=args.device)
+    status = "converged" if info["converged"] else "NOT CONVERGED"
+    print(f"MAP ({status} in {info['iters']} iters, "
+          f"logp={info['logp']:.4f}, |grad|={info['grad_norm']:.2e})")
+    w = max(len(k) for k in point) + 2 if point else 0
+    for k in sorted(point):
+        v = np.asarray(point[k])
+        val = f"{float(v):.6g}" if v.shape == () else np.array2string(
+            v, precision=4, separator=", ")
+        print(f"{k:<{w}}{val}")
+    return 0 if info["converged"] else 1
 
 
 def _cmd_variational(args):
-    print("FAIL: 'variational' " + NOT_PORTED.format("advi.py"), file=sys.stderr)
-    return 2
+    from exmc_tpu_torch.advi import advi_fit
+    from exmc_tpu_torch.stan import frontend
+
+    with open(args.model) as f:
+        code = f.read()
+    ir = frontend.compile(code, _load_data(args.data))
+    fit = advi_fit(ir, num_steps=args.iters, seed=args.seed,
+                   num_draws=args.draws, optimizer="adam", device=args.device)
+    print(f"ADVI: converged_at={fit.get('converged_at')}")
+    trace = fit["draws"]
+    _print_fit_report(trace, {})
+    if args.output:
+        _save_fit(args.output, {"posterior": {
+            k: np.asarray(v) for k, v in trace.items()}})
+        print(f"wrote {args.output}")
+    return 0
 
 
 def _cmd_check(args):
@@ -213,7 +255,7 @@ def main(argv=None):
                    help="disable automatic non-centered parameterization")
     p.add_argument("--engine", default="nuts",
                    choices=["nuts", "chees", "snaper", "meads"],
-                   help="nuts (the others are not ported yet)")
+                   help="nuts (default), or the lockstep ensemble engines")
     p.add_argument("--output", help="write fit to .npz or .json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_sample)
@@ -226,6 +268,7 @@ def main(argv=None):
     p.add_argument("--jacobian", action="store_true",
                    help="include constraint-transform Jacobian terms "
                         "(Stan default is off)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_optimize)
 
     p = sub.add_parser("variational", help="mean-field ADVI (Stan variational)")
@@ -235,6 +278,7 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=5000)
     p.add_argument("--draws", type=int, default=1000)
     p.add_argument("--output", help="write fit to .npz or .json")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_variational)
 
     p = sub.add_parser("check", help="compile-check a Stan program")

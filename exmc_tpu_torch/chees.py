@@ -1,0 +1,395 @@
+"""ChEES-HMC and SNAPER-HMC for many chains (``exmc_tpu/chees.py``;
+Hoffman, Radul & Sountsov 2021; Sountsov & Hoffman 2022).
+
+Every chain runs the same jittered number of leapfrog steps per
+iteration, L = clip(ceil(u T / eps), 1, max_num_steps) with one Halton
+number u per iteration, so the whole batch moves in lockstep. The JAX
+package runs the two scans (warmup with adaptation, then sampling) as one
+program; the port runs them as a host loop over batched tensors: L is
+read on the host once per iteration (one sync), then L leapfrog steps,
+each a value-and-grad of the chain batch (a CUDA graph replay on the
+card) and a few elementwise ops. Nothing else in an iteration waits for
+the device.
+
+Adaptation, as in the JAX package: trajectory length T by Adam on the
+ChEES (or, for SNAPER, the principal-component projected) criterion
+gradient, averaged into logT_bar; the step size by dual averaging on the
+harmonic-mean accept probability; the diagonal metric by the chains'
+Welford moments merged at the window ends of the NUTS schedule; SNAPER's
+principal component by a damped power iteration.
+
+Randomness: per iteration a momentum draw z (C, d) and an accept
+uniform (C,) from one ``torch.Generator`` seeded from ``seed`` (inits
+from a second one, as in the NUTS sampler); ``_run`` takes a carry and
+``rand(i) -> (z, un)``, so that tests can start from the JAX package's
+state with its draws (it folds a key per chain and iteration).
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from exmc_tpu_torch.config import default_dtype
+from exmc_tpu_torch.engines_common import (
+    KernelCache,
+    postprocess_ensemble,
+    run_data,
+)
+from exmc_tpu_torch.nuts.leapfrog import (
+    Metric,
+    kinetic_energy,
+    leapfrog,
+    sample_momentum,
+    velocity,
+)
+from exmc_tpu_torch.nuts.masked import HostSyncs
+from exmc_tpu_torch.nuts.mass_matrix import (
+    welford_finalize,
+    welford_init,
+    welford_merge_across,
+    welford_update,
+)
+from exmc_tpu_torch.nuts.step_size import (
+    da_finalize,
+    da_init,
+    da_update,
+    find_reasonable_epsilon,
+)
+from exmc_tpu_torch.nuts.warmup import build_schedule
+
+# Adam hyperparameters of the log-trajectory-length update
+ADAM_LR = 0.025
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8
+EPS_SEARCH_SEED_OFFSET = 424_243
+
+
+def _halton_base2(n):
+    """First n van der Corput base-2 numbers in (0, 1), u_i = bitrev(i+1)."""
+    i = np.arange(1, n + 1, dtype=np.uint64)
+    u = np.zeros(n, dtype=np.float64)
+    f = 0.5
+    while i.any():
+        u += f * (i & 1)
+        i >>= 1
+        f *= 0.5
+    return u
+
+
+def _weights(q1, v1, accept):
+    """Accept-prob weights with non-finite endpoints masked out, their
+    clamped sum, and q1, v1 with those rows zeroed."""
+    finite = (torch.isfinite(q1).all(-1) & torch.isfinite(v1).all(-1)
+              & torch.isfinite(accept))
+    w = torch.where(finite, accept, torch.zeros_like(accept))
+    wsum = torch.clamp_min(torch.sum(w), 1e-6)
+    fin = finite.unsqueeze(-1)
+    return (w, wsum, torch.where(fin, q1, torch.zeros_like(q1)),
+            torch.where(fin, v1, torch.zeros_like(v1)))
+
+
+def _chees_grad(q0, q1, v1, accept, tlen):
+    """Accept-weighted ChEES gradient estimate with respect to log T,
+    normalized by the criterion's magnitude (the centering means are
+    accept-weighted, non-finite endpoints masked)."""
+    w, wsum, q1z, v1z = _weights(q1, v1, accept)
+    m1 = torch.sum(w.unsqueeze(-1) * q1z, dim=0) / wsum
+    m0 = torch.sum(w.unsqueeze(-1) * q0, dim=0) / wsum
+    c0 = q0 - m0
+    c1 = q1z - m1
+    delta = torch.sum(c1 * c1, dim=-1) - torch.sum(c0 * c0, dim=-1)
+    dirn = torch.sum(c1 * v1z, dim=-1)
+    g = torch.sum(w * (delta * dirn * tlen)) / wsum
+    scale = torch.sum(w * torch.abs(delta)) / wsum
+    return g / torch.clamp_min(scale, 1e-10)
+
+
+def _harmonic_accept(accept):
+    """Harmonic-mean accept probability; non-finite accepts count ~0."""
+    a = torch.where(torch.isfinite(accept), accept, torch.zeros_like(accept))
+    a = torch.clamp(a, 1e-10, 1.0)
+    return accept.shape[0] / torch.sum(1.0 / a)
+
+
+def _snaper_grad(q0, q1, v1, accept, tlen, pc, inv):
+    """The SNAPER criterion gradient: ChEES's with the squared norm
+    replaced by the squared projection on the principal component of
+    the preconditioned posterior."""
+    s = torch.sqrt(inv)
+    w, wsum, q1z, v1z = _weights(q1, v1, accept)
+    m1 = torch.sum(w.unsqueeze(-1) * q1z, dim=0) / wsum
+    m0 = torch.sum(w.unsqueeze(-1) * q0, dim=0) / wsum
+    a0 = ((q0 - m0) / s) @ pc
+    a1 = ((q1z - m1) / s) @ pc
+    dv = (v1z / s) @ pc
+    delta = a1 * a1 - a0 * a0
+    g = torch.sum(w * (delta * (a1 * dv) * tlen)) / wsum
+    scale = torch.sum(w * torch.abs(delta)) / wsum
+    return g / torch.clamp_min(scale, 1e-10)
+
+
+def _oja_update(pc, q, inv, enabled, t):
+    """Damped power-iteration update of the principal component from
+    the chain batch, in preconditioned coordinates; a fully masked
+    iteration leaves it unchanged."""
+    s = torch.sqrt(inv)
+    w = enabled.to(q.dtype)
+    wsum = torch.clamp_min(torch.sum(w), 1.0)
+    mean_q = torch.sum(w.unsqueeze(-1) * q, dim=0) / wsum
+    z = torch.where(enabled.unsqueeze(-1), (q - mean_q) / s, torch.zeros_like(q))
+    g = (z.T @ (z @ pc)) / wsum
+    gn = torch.sqrt(torch.sum(g * g))
+    g_hat = torch.where(gn > 1e-12, g / torch.clamp_min(gn, 1e-12), pc)
+    beta = (t + 9.0) ** -0.75
+    new = (1.0 - beta) * pc + beta * g_hat
+    new = new / torch.sqrt(torch.clamp_min(torch.sum(new * new), 1e-12))
+    return torch.where(torch.sum(w) > 0.5, new, pc)
+
+
+class _Kernel:
+    """The run's constants: the Halton jitter and the warmup schedule."""
+
+    def __init__(self, num_warmup, num_samples):
+        total = num_warmup + num_samples
+        self.num_warmup, self.num_samples = num_warmup, num_samples
+        self.halton = _halton_base2(total).astype(np.float32)
+        schedule = build_schedule(num_warmup, max_depth=10)
+        self.update_mass = schedule.update_mass
+        self.window_end = schedule.window_end
+
+
+def _init_carry(vag_fn, q0, logp0, grad0, z_eps, criterion, syncs):
+    """The carry the JAX package's warmup scan starts from, after its
+    init search: one reasonable step size from chain 0 and T = 8 eps."""
+    c, d = q0.shape
+    dt, dev = q0.dtype, q0.device
+    inv0 = torch.ones(d, dtype=dt, device=dev)
+    metric0 = Metric(inv=inv0, chol_inv=torch.sqrt(inv0))
+    eps0 = find_reasonable_epsilon(vag_fn, q0[:1], logp0[:1], grad0[:1], metric0,
+                                   z_eps, syncs=syncs)[0]
+    log_t0 = torch.log(8.0 * eps0)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    carry = dict(q=q0, logp=logp0, grad=grad0, da=da_init(eps0), logT=log_t0,
+                 logT_bar=log_t0, adam_m=zero, adam_v=zero, adam_t=zero, inv=inv0,
+                 wf=welford_init(c, d, dt, dev))
+    if criterion == "snaper":
+        carry["pc"] = torch.full((d,), 1.0 / math.sqrt(d), dtype=dt, device=dev)
+    return carry
+
+
+def _num_steps(u, T, eps, max_num_steps):
+    """L = clip(ceil(u T / eps), 1, max_num_steps) as a host int (one
+    sync); a NaN converts to 0 and an overflow saturates, as XLA's
+    float-to-int conversion does."""
+    lf = torch.ceil(u * T / eps)
+    lf = torch.nan_to_num(lf, nan=0.0, posinf=float(max_num_steps),
+                          neginf=0.0)
+    return int(torch.clamp(lf, 1, max_num_steps))
+
+
+def _transition(vag_fn, carry, u, eps, T, z, un, max_num_steps):
+    """One jittered-trajectory HMC move of the whole batch."""
+    inv = carry["inv"]
+    metric = Metric(inv=inv, chol_inv=torch.sqrt(inv))
+    n_steps = _num_steps(u, T, eps, max_num_steps)
+    tlen = float(n_steps) * eps  # the length actually integrated
+    p0 = sample_momentum(metric, z)
+    joint0 = carry["logp"] - kinetic_energy(metric, p0)
+    q1, p1, logp1, grad1 = carry["q"], p0, carry["logp"], carry["grad"]
+    for _ in range(n_steps):
+        q1, p1, logp1, grad1 = leapfrog(vag_fn, q1, p1, grad1, eps, metric)
+    joint1 = logp1 - kinetic_energy(metric, p1)
+    delta = joint1 - joint0
+    # a non-finite gradient is rejected even with a finite energy: grad
+    # is only refreshed on accept, and an accepted NaN grad poisons
+    # every later trajectory
+    ok = torch.isfinite(delta) & torch.isfinite(grad1).all(-1)
+    delta = torch.where(ok, delta, torch.full_like(delta, -math.inf))
+    accept_prob = torch.exp(torch.clamp_max(delta, 0.0))
+    take = un < accept_prob
+    tk = take.unsqueeze(-1)
+    return dict(q=torch.where(tk, q1, carry["q"]),
+                logp=torch.where(take, logp1, carry["logp"]),
+                grad=torch.where(tk, grad1, carry["grad"]),
+                accept_prob=accept_prob, diverging=delta < -1000.0,
+                energy=-torch.where(take, joint1, joint0), num_steps=n_steps,
+                metric=metric, q1=q1, p1=p1, tlen=tlen)
+
+
+def _warm_step(vag_fn, carry, i, kernel, z, un, target_accept, max_num_steps,
+               criterion):
+    eps = torch.exp(carry["da"].log_eps)
+    T = torch.exp(carry["logT"])
+    mv = _transition(vag_fn, carry, float(kernel.halton[i]), eps, T, z, un,
+                     max_num_steps)
+    # trajectory length: Adam on the criterion gradient
+    v1 = velocity(mv["metric"], mv["p1"])
+    if criterion == "snaper":
+        g = _snaper_grad(carry["q"], mv["q1"], v1, mv["accept_prob"], mv["tlen"],
+                         carry["pc"], carry["inv"])
+    else:
+        g = _chees_grad(carry["q"], mv["q1"], v1, mv["accept_prob"], mv["tlen"])
+    t_adam = carry["adam_t"] + 1.0
+    m = ADAM_B1 * carry["adam_m"] + (1 - ADAM_B1) * g
+    v = ADAM_B2 * carry["adam_v"] + (1 - ADAM_B2) * g * g
+    m_hat = m / (1 - ADAM_B1 ** t_adam)
+    v_hat = v / (1 - ADAM_B2 ** t_adam)
+    log_t = carry["logT"] + ADAM_LR * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
+    log_t = torch.clamp(log_t, torch.log(eps), torch.log(eps * (max_num_steps - 1)))
+    eta = (t_adam + 10.0) ** -0.75
+    log_t_bar = eta * log_t + (1 - eta) * carry["logT_bar"]
+    # step size: dual averaging on the harmonic-mean accept
+    da = da_update(carry["da"], _harmonic_accept(mv["accept_prob"]), target_accept)
+    # pooled metric at the window ends; divergent draws excluded
+    enabled = ~mv["diverging"] & bool(kernel.update_mass[i])
+    wf = welford_update(carry["wf"], mv["q"], enabled)
+    inv = carry["inv"]
+    if kernel.window_end[i]:
+        inv = welford_finalize(welford_merge_across(wf), inv)
+        c, d = mv["q"].shape
+        wf = welford_init(c, d, mv["q"].dtype, mv["q"].device)
+    new = dict(q=mv["q"], logp=mv["logp"], grad=mv["grad"], da=da, logT=log_t,
+               logT_bar=log_t_bar, adam_m=m, adam_v=v, adam_t=t_adam, inv=inv, wf=wf)
+    if criterion == "snaper":
+        new["pc"] = _oja_update(carry["pc"], mv["q"], carry["inv"], enabled,
+                                torch.as_tensor(float(i), dtype=g.dtype, device=g.device))
+    return new, mv
+
+
+def _run(vag_fn, carry, kernel, target_accept, max_num_steps, criterion, rand,
+         syncs, on_iter=None, first=0, last=None):
+    """Iterations ``first`` .. ``last`` (default: to the end) of the
+    warmup and sampling from ``carry``. ``rand(i) -> (z (C, d), un (C,))``
+    gives iteration i's draws; ``on_iter(i, carry, num_steps)`` sees the
+    carry after each. Returns (carry, outs) with outs chains-first
+    (C, samples run, ...) and ``num_steps`` the sampling iterations' L."""
+    total = kernel.num_warmup + kernel.num_samples
+    last = total if last is None else last
+    c, d = carry["q"].shape
+    dt, dev = carry["q"].dtype, carry["q"].device
+    ns = max(last - max(first, kernel.num_warmup), 0)
+    outs = {"q": torch.empty(c, ns, d, dtype=dt, device=dev),
+            "logp": torch.empty(c, ns, dtype=dt, device=dev),
+            "accept_prob": torch.empty(c, ns, dtype=dt, device=dev),
+            "diverging": torch.empty(c, ns, dtype=torch.bool, device=dev),
+            "energy": torch.empty(c, ns, dtype=dt, device=dev)}
+    num_steps = []
+    eps = T = None
+    for i in range(first, last):
+        z, un = rand(i)
+        syncs.count += 1  # L
+        if i < kernel.num_warmup:
+            carry, mv = _warm_step(vag_fn, carry, i, kernel, z, un, target_accept,
+                                   max_num_steps, criterion)
+        else:
+            if eps is None:  # the tuning is frozen from here on
+                eps = da_finalize(carry["da"])
+                T = torch.exp(carry["logT_bar"])
+            mv = _transition(vag_fn, carry, float(kernel.halton[i]), eps, T, z, un,
+                             max_num_steps)
+            carry = dict(carry, q=mv["q"], logp=mv["logp"], grad=mv["grad"])
+            k = len(num_steps)
+            for name in outs:
+                outs[name][:, k] = mv[name]
+            num_steps.append(mv["num_steps"])
+        if on_iter is not None:
+            on_iter(i, carry, mv["num_steps"])
+    outs["num_steps"] = np.asarray(num_steps, np.int64)
+    return carry, outs
+
+
+_KERNEL_CACHE = KernelCache()
+
+
+def clear_kernel_cache():
+    _KERNEL_CACHE.clear()
+
+
+def sample_chees(ir, *, num_chains=64, num_warmup=500, num_samples=1000,
+                 seed=0, init=None, data=None, ncp=True,
+                 target_accept=0.651, max_num_steps=1024, mesh=None,
+                 return_unconstrained=False, criterion="chees", device=None):
+    """Many-chain ChEES-HMC on ``device`` (default ``"cuda"``). Returns
+    (trace, stats) like ``sample``: accept_prob / logp / energy /
+    diverging are (chains, samples); step_size, trajectory_length,
+    inv_mass and num_steps_mean are the frozen post-warmup tuning, and
+    host_syncs counts the run's device-to-host reads (one per
+    iteration for L, plus the init search's).
+
+    ``target_accept`` defaults to the paper's 0.651; ``max_num_steps``
+    caps L. ``init`` is a dict of constrained values that every chain
+    starts from. ``mesh`` (chains sharded over devices) is multi-device
+    work that the port has not taken on."""
+    from exmc_tpu_torch.nuts.sampler import (
+        CHAIN_SEED_STRIDE,
+        INIT_SEED_OFFSET,
+        _find_valid_init,
+        _init_position,
+    )
+
+    if criterion not in ("chees", "snaper"):
+        raise ValueError(f"unknown criterion {criterion!r} (chees|snaper)")
+    if num_chains < 2:
+        raise ValueError("ChEES adaptation needs >= 2 chains for the "
+                         "cross-chain criterion (use sample() for 1)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= shards the chains over several devices, which waits for "
+            "the port of the parallel package (ROADMAP §1 item 13)")
+    key = (KernelCache.model_sig(ir, ncp), num_chains, num_warmup, num_samples,
+           float(target_accept), int(max_num_steps), criterion)
+    model, kernel = _KERNEL_CACHE.get_or_build(
+        key, ir, ncp, device, lambda: _Kernel(num_warmup, num_samples))
+    d = model.size
+    if d == 0:
+        return {}, {"note": "model has no free parameters"}
+    dt, dev = default_dtype(), model.device
+    ddata = run_data(ir, model, data)
+
+    def vag_fn(q):
+        return model.value_and_grad(q, ddata)
+
+    syncs = HostSyncs()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    init_gen = torch.Generator(device=dev)
+    init_gen.manual_seed(seed * CHAIN_SEED_STRIDE + INIT_SEED_OFFSET)
+    if init is not None:
+        q_inits = model.unconstrain(init).to(dt).expand(num_chains, d).clone()
+    else:
+        q_inits = _init_position(init_gen, (num_chains, d), dt, dev)
+    q0, logp0, grad0 = _find_valid_init(vag_fn, q_inits, gen, syncs=syncs)
+    eps_gen = torch.Generator(device=dev)
+    eps_gen.manual_seed(seed + EPS_SEARCH_SEED_OFFSET)
+    z_eps = torch.randn(1, d, generator=eps_gen, dtype=dt, device=dev)
+    carry = _init_carry(vag_fn, q0, logp0, grad0, z_eps, criterion, syncs)
+
+    def rand(i):
+        return (torch.randn(num_chains, d, generator=gen, dtype=dt, device=dev),
+                torch.rand(num_chains, generator=gen, dtype=dt, device=dev))
+
+    carry, outs = _run(vag_fn, carry, kernel, target_accept, max_num_steps,
+                       criterion, rand, syncs)
+    extra = {
+        "step_size": da_finalize(carry["da"]).cpu().numpy(),
+        "trajectory_length": torch.exp(carry["logT_bar"]).cpu().numpy(),
+        "inv_mass": carry["inv"].cpu().numpy(),
+        "num_steps_mean": float(outs["num_steps"].mean()) if num_samples else float("nan"),
+        "host_syncs": syncs.count,
+    }
+    if criterion == "snaper":
+        extra["principal_component"] = carry["pc"].cpu().numpy()
+    return postprocess_ensemble(outs, model, ddata, return_unconstrained, extra)
+
+
+def sample_snaper(ir, **kwargs):
+    """SNAPER-HMC: the ChEES kernel with the trajectory-length criterion
+    projected onto an online estimate of the posterior's principal
+    component in preconditioned space; stats also carry the learned
+    ``principal_component``. Accepts every ``sample_chees`` keyword."""
+    if kwargs.pop("criterion", "snaper") != "snaper":
+        raise ValueError("sample_snaper is the criterion='snaper' entry "
+                         "point; call sample_chees for criterion='chees'")
+    return sample_chees(ir, criterion="snaper", **kwargs)

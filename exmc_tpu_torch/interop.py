@@ -109,3 +109,50 @@ def tuning_from_numpy(step_size, inv_mass, device=None, dense=None):
     if dense and inv.ndim == 2:
         inv = inv.expand(eps.shape[0], -1, -1).contiguous()
     return eps, make_metric(inv, dense=dense)
+
+
+def _tensors(x, device):
+    """Arrays (in dicts and lists) -> tensors on ``device``."""
+    if isinstance(x, dict):
+        return {k: _tensors(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tensors(v, device) for v in x)
+    if x is None or isinstance(x, (str, bool, int, float)):
+        return x
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def fit_from_numpy(fit, device=None):
+    """An ADVI or Pathfinder fit of the JAX package (``mu``, ``sigma``,
+    and any path buffers: the points ``mu`` (n, d), ``sigma``, the
+    curvature histories ``s``, ``y``, ``valid`` and ``gamma``) as tensors
+    on ``device``; draws and scalars pass through as they are."""
+    dev = prepare_device(device)
+    keep = ("draws", "best_iter", "converged_at", "steps_run", "method", "psir")
+    return {k: (v if k in keep else _tensors(v, dev)) for k, v in fit.items()}
+
+
+def ensemble_state_from_numpy(carry, device=None):
+    """A ChEES / SNAPER / MEADS carry of the JAX package (q, logp, grad,
+    the dual-averaging state, logT, logT_bar, the Adam moments and count,
+    the inverse mass, the per-chain Welford state, SNAPER's principal
+    component, MEADS's momentum u), its arrays as numpy, as the port's
+    carry on ``device``. The PRNG keys are dropped: the port's draws come
+    from a generator or are injected."""
+    from exmc_tpu_torch.nuts.mass_matrix import WelfordState
+    from exmc_tpu_torch.nuts.step_size import DualAveragingState
+
+    dev = prepare_device(device)
+    out = {}
+    for k, v in carry.items():
+        if k == "keys":
+            continue
+        if k == "da":
+            out[k] = DualAveragingState(*(_tensors(getattr(v, f), dev)
+                                          for f in DualAveragingState._fields))
+        elif k == "wf":
+            out[k] = WelfordState(*(_tensors(getattr(v, f), dev)
+                                    for f in WelfordState._fields))
+        else:
+            out[k] = _tensors(v, dev)
+    return out

@@ -27,7 +27,9 @@ metric); ``run_chunked`` (the same pipeline in segments, with an exact
 checkpoint and resume); ``sample_stream`` (a host callback per chunk, or
 every k-th draw from the pipeline loop); dict, array and superchain
 inits; and a cache of samplers keyed on the IR's signature.
-``init="pathfinder"`` waits for the port of ``pathfinder.py``.
+``init="pathfinder"`` starts the chains from draws of a multi-path
+Pathfinder fit (``pathfinder.pathfinder_init``). ``sample(engine=...)``
+dispatches to the ensemble engines (``chees.py``, ``meads.py``).
 """
 
 import hashlib
@@ -440,12 +442,14 @@ class NUTSSampler:
             inv0 = inv0 * self._freeze_mask
         return make_metric(inv0)
 
-    def _resolve_inits(self, init, num_chains, seed):
+    def _resolve_inits(self, init, num_chains, seed, data=None):
         """Per-chain unconstrained inits: ``("superchain", K)`` (K random
         points, each shared by M = num_chains / K consecutive chains, the
-        grouping ``nested_rhat`` expects), a named dict of constrained
-        values (all chains start there), a (num_chains, d) array of
-        unconstrained points, or None (one random point per chain)."""
+        grouping ``nested_rhat`` expects), ``"pathfinder"`` (draws of a
+        multi-path Pathfinder fit on the run's ``data``), a named dict of
+        constrained values (all chains start there), a (num_chains, d)
+        array of unconstrained points, or None (one random point per
+        chain)."""
         d, dev = self.model.size, self.model.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed * CHAIN_SEED_STRIDE + INIT_SEED_OFFSET)
@@ -462,10 +466,13 @@ class NUTSSampler:
             if init != "pathfinder":
                 raise ValueError(f"unknown init mode {init!r} "
                                  "(expected 'pathfinder' or a named dict)")
-            raise NotImplementedError(
-                "init='pathfinder' needs the port of pathfinder.py, not "
-                "done yet (ROADMAP §1 item 11); pass a dict, an array or "
-                "('superchain', K)")
+            from exmc_tpu_torch.pathfinder import pathfinder_init
+
+            # the fit's seed is drawn from the init generator, as the JAX
+            # package draws it from the run's key
+            pf_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen, device=dev))
+            q = pathfinder_init(self.model, num_chains, seed=pf_seed, data=data)
+            return torch.as_tensor(q, dtype=default_dtype(), device=dev)
         if isinstance(init, (np.ndarray, torch.Tensor)):
             q0 = torch.as_tensor(init, dtype=default_dtype(), device=dev)
             if tuple(q0.shape) != (num_chains, d):
@@ -496,7 +503,7 @@ class NUTSSampler:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         syncs = HostSyncs()
-        q_inits = self._resolve_inits(init, num_chains, seed)
+        q_inits = self._resolve_inits(init, num_chains, seed, ddata)
         q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
         seg_kw = dict(interweave_fn=iw, freeze_mask=self._freeze_mask,
                       cond_metric_fn=self._cond_metric_fn)
@@ -547,7 +554,7 @@ class NUTSSampler:
         dev = self.model.device
         vag, _ = self._vag_iw(ddata)
         syncs = HostSyncs()
-        q_inits = self._resolve_inits(init, num_chains, seed)
+        q_inits = self._resolve_inits(init, num_chains, seed, ddata)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         q0, logp0, grad0 = _find_valid_init(vag, q_inits[:1], gen, syncs=syncs)
@@ -849,13 +856,6 @@ def _make_sampler(ir_or_model, ncp=True, device=None, **opts) -> NUTSSampler:
     return sampler
 
 
-def _check_engine(engine):
-    if engine != "nuts":
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP §1 item 11: "
-            "chees.py and meads.py); the port runs engine='nuts'")
-
-
 def sample(ir, *, num_chains=1, seed=0, init=None, warm_start=None, data=None,
            ncp=True, device=None, return_unconstrained=False, engine="nuts",
            **opts):
@@ -866,11 +866,40 @@ def sample(ir, *, num_chains=1, seed=0, init=None, warm_start=None, data=None,
     cache); this IR's own ``Builder.data`` then rides the data channel,
     so a cached sampler samples this IR's observations.
 
+    ``engine`` dispatches behind the same entry point: "nuts" (default),
+    "chees" / "snaper" (lockstep many-chain HMC; the other options go to
+    :func:`exmc_tpu_torch.chees.sample_chees`) or "meads" (self-tuning
+    GHMC, :func:`exmc_tpu_torch.meads.sample_meads`). These take dict
+    inits only and no warm start, and run 64 (ChEES/SNAPER) or 128
+    (MEADS) chains when ``num_chains`` is left at 1.
+
     NOTE on ``ensemble_rescue`` (default True, >= 5 chains): during
     warmup, chains whose logp sits >= max(50, 1.5*sqrt(d)) nats below
     the 75th-percentile chain are teleported onto it at window ends;
     pass ``ensemble_rescue=False`` when hunting multimodality."""
-    _check_engine(engine)
+    if engine in ("chees", "snaper"):
+        from exmc_tpu_torch.chees import sample_chees
+
+        if init is not None and not isinstance(init, dict):
+            raise ValueError(f"engine={engine!r} supports only dict inits")
+        if warm_start is not None:
+            raise ValueError(f"engine={engine!r} has no warm_start")
+        return sample_chees(
+            ir, num_chains=(64 if num_chains == 1 else num_chains), seed=seed,
+            init=init, data=data, ncp=ncp, device=device,
+            return_unconstrained=return_unconstrained, criterion=engine, **opts)
+    if engine == "meads":
+        from exmc_tpu_torch.meads import sample_meads
+
+        if warm_start is not None:
+            raise ValueError("engine='meads' has no warm_start")
+        return sample_meads(
+            ir, num_chains=(128 if num_chains == 1 else num_chains), seed=seed,
+            data=data, ncp=ncp, device=device,
+            return_unconstrained=return_unconstrained,
+            **({"init": init} if init is not None else {}), **opts)
+    if engine != "nuts":
+        raise ValueError(f"unknown engine {engine!r} (nuts|chees|snaper|meads)")
     sampler = _make_sampler(ir, ncp=ncp, device=device, **opts)
     if data is None and not isinstance(ir, CompiledModel):
         data = ir.data

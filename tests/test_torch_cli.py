@@ -2,7 +2,9 @@
 ``check``, ``sample`` -> ``summary`` and syntax-error cases of
 ``tests/test_cli.py``, the fit layout shared with the JAX CLI (each
 ``summary`` reads the other's fits), the flags reaching the sampler, and
-the commands and engines that wait for their modules' port."""
+``optimize``, ``variational`` and ``sample --engine chees|meads`` run on
+the CPU at a small size (the MAP report, the ADVI fit file, and ensemble
+fits that both CLIs' ``summary`` read)."""
 
 import json
 
@@ -153,10 +155,69 @@ def test_sample_flags_reach_the_sampler(model_files, monkeypatch):
     ["sample", "{model}", "--data", "{data}", "--engine", "meads"],
 ])
 def test_commands_not_ported_yet(model_files, capsys, argv):
+    """Each of these commands once waited for its module's port; each now
+    runs on the CPU at a small size and prints what the JAX CLI prints:
+    the MAP report (the same point as the JAX CLI's), the ADVI fit file,
+    and ensemble fits that both summaries read."""
+    model, data, d = model_files
+    cmd = argv[0] if argv[0] != "sample" else argv[-1]
+    fit = str(d / f"{cmd}.npz")
+    small = {"optimize": ["--iters", "200"],
+             "variational": ["--iters", "300", "--draws", "50", "--output", fit],
+             "chees": ["--chains", "8", "--warmup", "30", "--samples", "20",
+                       "--output", fit],
+             "meads": ["--chains", "8", "--warmup", "30", "--samples", "20",
+                       "--output", fit]}[cmd]
+    argv = [a.format(model=model, data=data) for a in argv] + small
+    assert main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    if cmd == "optimize":
+        assert out.startswith("MAP (converged in ")
+        assert jax_main(argv) == 0
+        want = capsys.readouterr().out
+        rows = lambda text: {ln.split()[0]: float(ln.split()[1])
+                             for ln in text.strip().splitlines()[1:]}
+        assert sorted(rows(out)) == sorted(rows(want)) == ["mu", "sigma"]
+        for k, v in rows(want).items():
+            assert rows(out)[k] == pytest.approx(v, rel=1e-4)
+        return
+    assert f"wrote {fit}" in out
+    groups = np.load(fit)
+    mu = groups["posterior/mu"]
+    want_shape = (1, 50) if cmd == "variational" else (8, 20)
+    assert mu.shape == want_shape and np.isfinite(mu).all()
+    assert 0.0 < float(mu.mean()) < 4.0
+    if cmd != "variational":
+        assert groups["sample_stats/diverging"].shape == (8, 20)
+    assert main(["summary", fit]) == 0
+    ours = capsys.readouterr().out
+    assert "mu" in ours and "sigma" in ours
+    assert jax_main(["summary", fit]) == 0
+    _same_table(capsys.readouterr().out, ours)
+
+
+def test_engine_flags_reach_the_engines(model_files, monkeypatch, capsys):
+    """--engine goes to ``stan.sample``; --target-accept reaches ChEES and
+    is noted as ignored by MEADS, --max-depth by both."""
     model, data, _ = model_files
-    assert main([a.format(model=model, data=data) for a in argv]) != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP §1 item 11" in err
+    captured = {}
+    from exmc_tpu_torch.stan import frontend
+
+    def fake_sample(code, d, **opts):
+        captured.clear()
+        captured.update(opts)
+        return ({"mu": np.zeros((2, 4))}, {"diverging": np.zeros((2, 4))})
+
+    monkeypatch.setattr(frontend, "sample", fake_sample)
+    assert main(["sample", model, "--data", data, "--engine", "chees",
+                 "--target-accept", "0.7", "--max-depth", "5"]) == 0
+    assert captured["engine"] == "chees" and captured["target_accept"] == 0.7
+    assert "max_tree_depth" not in captured and "num_warmup" not in captured
+    assert "--max-depth is ignored" in capsys.readouterr().err
+    assert main(["sample", model, "--data", data, "--engine", "meads",
+                 "--target-accept", "0.7"]) == 0
+    assert captured["engine"] == "meads" and "target_accept" not in captured
+    assert "ignored by engine 'meads'" in capsys.readouterr().err
 
 
 def test_load_data_uses_default_dtype(tmp_path):

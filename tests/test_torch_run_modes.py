@@ -230,8 +230,13 @@ def test_dict_and_array_inits_start_there():
     assert trace["theta"].shape == (6, 10, 8) and np.isfinite(trace["theta"]).all()
     with pytest.raises(ValueError, match="shape"):
         smp.run(num_chains=5, init=arr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smp.run(num_chains=6, init="pathfinder")
+    # init="pathfinder": the chains start from the best Pathfinder path's
+    # draws, which are distinct per chain
+    p = smp._start(6, 0, "pathfinder", None, None)
+    assert p.carry.q.shape == (6, smp.model.size)
+    assert torch.isfinite(p.carry.q).all() and len(set(p.carry.q[:, 0].tolist())) == 6
+    trace, _ = smp.run(num_chains=6, seed=0, init="pathfinder")
+    assert trace["theta"].shape == (6, 10, 8) and np.isfinite(trace["theta"]).all()
     with pytest.raises(ValueError, match="unknown init mode"):
         smp.run(num_chains=6, init="nope")
 
@@ -419,8 +424,13 @@ def test_sample_chains_and_exports():
     assert trace["mu"].shape == (4, 10) and stats["step_size"].shape == (4,)
     for name in ("stan", "Model", "sample_chains", "sample_stream"):
         assert name in exmc_tpu_torch.__all__ and name in exmc_tpu.__all__
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exmc_tpu_torch.sample(ir, device="cpu", engine="chees")
+    for name in ("fit_map", "laplace", "psir", "advi_fit", "pathfinder_fit",
+                 "sample_chees", "sample_snaper", "sample_meads"):
+        assert name in exmc_tpu_torch.__all__ and name in exmc_tpu.__all__
+    trace, stats = exmc_tpu_torch.sample(ir, device="cpu", engine="chees",
+                                         num_chains=8, num_warmup=20, num_samples=10)
+    assert trace["mu"].shape == (8, 10) and np.isfinite(trace["mu"]).all()
+    assert stats["step_size"].shape == () and stats["host_syncs"] >= 30
 
 
 def test_data_warm_start_check_on_cpu():
