@@ -52,9 +52,20 @@ Phases, each printing JSON lines:
                  with PSIR), each held to the JAX package's result, and
                  NUTS from init="pathfinder" on the Stan eight-schools
                  NCP program;
+               * post: post-processing, SMC, flows, evidence and SBC
+                 (exmc_tpu_torch/benchmarks/post.py), one line per task:
+                 SBC on normal_loc_scale with NUTS (R = 256), ChEES
+                 (256 x 4) and MEADS (256 x 16) under the JAX package's
+                 protocol and gates; the reliability example at full
+                 settings (ADVI, Pathfinder, SMC, NUTS); flow_fit and
+                 NeuTra on the centered funnel and the conjugate model;
+                 the evidence by SMC and flow and a Bayes factor; the
+                 predictive checks and WAIC/LOO/compare on a 256-chain
+                 eight-schools trace, the card against the CPU; a
+                 per-point det callable compiled on the card, graphed;
                then one summary line each for the suite, the golds, the
-               entry checks, the engines, the approximate engines and the
-               pool;
+               entry checks, the engines, the approximate engines, the
+               post tasks and the pool;
   6. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
@@ -73,7 +84,7 @@ import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
-from exmc_tpu_torch.benchmarks import engines, entry, suite, validation
+from exmc_tpu_torch.benchmarks import engines, entry, post, suite, validation
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -103,10 +114,18 @@ POOL_WORKERS = 4
 # Estimated seconds of the longest tasks in the pool: their host syncs in
 # PR 3's card runs (the suite's at 150+150, the golds' under the card
 # recipe) at ~2.3 ms a sync, the entry tasks' from their runs' sizes,
-# the engine tasks' from their runs alone on the card.
+# the engine tasks' from their runs alone on the card, the post tasks'
+# from their first run in the pool.
 # Only the order matters: the long tasks never start last.
 POOL_COST_S = {
     ("suite", "eight_schools"): 250.0,
+    ("post", "reliability"): 108.0,
+    ("post", "flows"): 95.0,
+    ("post", "sbc:normal_loc_scale"): 90.0,
+    ("post", "sbc:chees_normal_loc_scale"): 24.0,
+    ("post", "post"): 20.0,
+    ("post", "sbc:meads_normal_loc_scale"): 18.0,
+    ("post", "evidence"): 11.0,
     ("engines", "approx"): 40.0,
     ("engines", "eight_schools:chees"): 30.0,
     ("engines", "pathfinder_init"): 25.0,
@@ -142,6 +161,7 @@ POOL_COST_S = {
 N_GOLDS = 51
 N_ENGINE_ROWS = 9        # three engines on three models
 N_VI_ROWS = 11           # the CLI, 3 fit_map, laplace, 2 ADVI, 3 Pathfinder, the init
+N_POST_ROWS = len(post.TASKS)
 
 
 def emit(obj):
@@ -282,12 +302,14 @@ def pool_tasks():
     tasks = ([("suite", m) for m in suite.MODELS]
              + [("gold", validation.gold_name(m)) for m in validation.all_gold_standards()]
              + [("entry", t) for t in entry.TASKS]
-             + [("engines", t) for t in engines.TASKS])
+             + [("engines", t) for t in engines.TASKS]
+             + [("post", t) for t in post.TASKS])
     return sorted(tasks, key=lambda t: -POOL_COST_S.get(t, 0.0))
 
 
-PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry", "engines": "engines"}
-POOL_PHASES = ("suite", "golds", "entry", "engines", "vi")
+PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry", "engines": "engines",
+            "post": "post"}
+POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post")
 
 
 def run_task(task):
@@ -321,6 +343,11 @@ def _run_task(kind, name):
         for i, line in enumerate(lines):
             line["fused_leapfrog_gaussian_launches"] = (
                 fused_leapfrog_gaussian.launches if i == 0 else 0)
+        return lines
+    if kind == "post":
+        fused_leapfrog_gaussian.launches = 0
+        lines = [{"task": name, **res} for res in post.run_task(name, "cuda")]
+        lines[0]["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
         return lines
     return [{"phase": "entry", **res} for res in entry.run_check(name, "cuda")]
 
@@ -384,7 +411,7 @@ def phase_pool(workers=POOL_WORKERS):
           "n": n_entry,
           "fused_leapfrog_gaussian_launches": launches["entry"]})
 
-    for p in ("engines", "vi"):
+    for p in ("engines", "vi", "post"):
         for res in by_phase[p]:
             if not res["ok"]:
                 name = res.get("check") or f"{res['model']}:{res['engine']}"
@@ -401,6 +428,14 @@ def phase_pool(workers=POOL_WORKERS):
     n_vi = len(by_phase["vi"]) + n_errors["vi"]
     emit({"phase": "vi_summary", "n_pass": n_vi - len(failures["vi"]), "n": n_vi,
           "fused_leapfrog_gaussian_launches": launches["vi"]})
+    rows = by_phase["post"]
+    n_post = len(rows) + n_errors["post"]
+    emit({"phase": "post_summary", "n_pass": n_post - len(failures["post"]), "n": n_post,
+          "sbc": [{k: r.get(k) for k in ("check", "R", "L", "min_p", "min_ecdf_p",
+                                         "divergence_rate", "host_syncs", "wall_s",
+                                         "peak_mb", "jax_reference_tpu", "ok")}
+                  for r in rows if r["check"].startswith("sbc:")],
+          "fused_leapfrog_gaussian_launches": launches["post"]})
     emit({"phase": "pool_summary", "seconds": seconds, "workers": workers,
           "tasks": len(tasks)})
 
@@ -411,9 +446,9 @@ def phase_pool(workers=POOL_WORKERS):
     for p, fs in failures.items():
         if fs:
             fail(f"{p}: " + " | ".join(fs))
-    if n_eng != N_ENGINE_ROWS or n_vi != N_VI_ROWS:
-        fail(f"engines/vi: {n_eng} and {n_vi} results, expected {N_ENGINE_ROWS} "
-             f"and {N_VI_ROWS}")
+    if n_eng != N_ENGINE_ROWS or n_vi != N_VI_ROWS or n_post != N_POST_ROWS:
+        fail(f"engines/vi/post: {n_eng}, {n_vi} and {n_post} results, expected "
+             f"{N_ENGINE_ROWS}, {N_VI_ROWS} and {N_POST_ROWS}")
     return launches
 
 
@@ -464,6 +499,7 @@ def main(argv=None):
         "entry_path_launches": pool_launches["entry"],
         "engines_path_launches": pool_launches["engines"],
         "vi_path_launches": pool_launches["vi"],
+        "post_path_launches": pool_launches["post"],
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

@@ -225,7 +225,7 @@ def check_chunked_and_stream(device="cuda", chains=256, warmup=120, samples=120,
     points = []
     st_every, stream["every_s"] = _timed(lambda: sample_stream(
         ir, lambda i, pt, st: points.append((i, pt)), num_chains=chains, every=every,
-        seed=SEED, **opts), dev)
+        mechanism="io_callback", seed=SEED, **opts), dev)
     stream["every_host_syncs"] = sampler.last_run["host_syncs"]
     stream["every_callbacks"] = len(points)
     want_idx = list(range(every - 1, samples, every))

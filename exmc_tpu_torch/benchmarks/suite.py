@@ -293,17 +293,47 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def _seed_metrics(trace, stats, wall, num_chains, num_samples):
+    """The per-seed metrics of one timed run."""
+    ess_vals, rhat_vals = {}, {}
+    for key0, arr in trace.items():
+        flat = arr.reshape(arr.shape[0], arr.shape[1], -1)
+        for i in range(flat.shape[-1]):
+            key = key0 if flat.shape[-1] == 1 else f"{key0}[{i}]"
+            ess_vals[key] = float(ess(flat[:, :, i]))
+            rhat_vals[key] = float(rhat(flat[:, :, i]))
+    min_ess = min(ess_vals.values())
+    return {
+        "wall_s": wall,
+        "min_ess": min_ess,
+        "min_ess_per_s": min_ess / wall,
+        "median_ess": float(np.median(list(ess_vals.values()))),
+        "max_rhat": max(rhat_vals.values()),
+        "divergence_rate": float(stats["divergences"].sum())
+        / (num_chains * num_samples),
+        "mean_depth": float(stats["depth"].mean()),
+    }
+
+
 def run_model(name, num_chains=None, num_warmup=1000, num_samples=1000,
-              seed=0, device=None, warm_up=(10, 10)):
+              seed=0, device=None, warm_up=(10, 10), ncp=None, chunked=None,
+              seeds=1, **opts):
     """Run one suite model under SUITE_RECIPE (``num_chains`` overrides
-    its chain count). A short warm-up run of ``warm_up`` = (warmup,
-    draws) iterations with ``seed`` comes first; the timed run uses
-    ``seed + 1`` and ends in ``torch.cuda.synchronize()``. Returns the
-    JAX package's result fields plus the port's own counts."""
+    its chain count, ``ncp`` its auto-NCP flag, ``opts`` its sampler
+    options). A short warm-up run of ``warm_up`` = (warmup, draws)
+    iterations with ``seed`` comes first; the ``seeds`` timed runs use
+    ``seed + 1``, ``seed + 2``, ... and each ends in
+    ``torch.cuda.synchronize()``. The metrics are the per-seed medians,
+    as in the JAX package (``per_seed`` holds each run's); the posterior
+    and the host syncs are the first timed run's. ``chunked`` runs each
+    timed run through ``run_chunked`` in chunks of that many
+    iterations. Returns the JAX package's result fields plus the port's
+    own counts."""
     recipe = SUITE_RECIPE[name]
     num_chains = recipe["chains"] if num_chains is None else num_chains
-    opts = recipe["opts"]
-    sampler = _make_sampler(build_model(name), ncp=recipe["ncp"],
+    ncp = recipe["ncp"] if ncp is None else ncp
+    opts = dict(recipe["opts"], **opts)
+    sampler = _make_sampler(build_model(name), ncp=ncp,
                             device=device, num_warmup=num_warmup,
                             num_samples=num_samples, **opts)
     dev = sampler.model.device
@@ -316,19 +346,20 @@ def run_model(name, num_chains=None, num_warmup=1000, num_samples=1000,
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    trace, stats = sampler.run(num_chains=num_chains, seed=seed + 1)
-    _sync(dev)
-    wall = time.perf_counter() - t0
-
-    ess_vals, rhat_vals = {}, {}
-    for key0, arr in trace.items():
-        flat = arr.reshape(arr.shape[0], arr.shape[1], -1)
-        for i in range(flat.shape[-1]):
-            key = key0 if flat.shape[-1] == 1 else f"{key0}[{i}]"
-            ess_vals[key] = float(ess(flat[:, :, i]))
-            rhat_vals[key] = float(rhat(flat[:, :, i]))
-    min_ess = min(ess_vals.values())
+    per_seed = []
+    for k in range(seeds):
+        t0 = time.perf_counter()
+        if chunked:
+            tr, st = sampler.run_chunked(num_chains=num_chains, seed=seed + 1 + k,
+                                         chunk_iters=chunked)
+        else:
+            tr, st = sampler.run(num_chains=num_chains, seed=seed + 1 + k)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        per_seed.append(_seed_metrics(tr, st, wall, num_chains, num_samples))
+        if k == 0:
+            trace, stats, host_syncs = tr, st, sampler.last_run["host_syncs"]
+    med = {k: float(np.median([r[k] for r in per_seed])) for k in per_seed[0]}
     iters = num_warmup + num_samples
     ref_exmc, ref_pymc = REFERENCE_ESS_PER_S[name]
     return {
@@ -339,26 +370,27 @@ def run_model(name, num_chains=None, num_warmup=1000, num_samples=1000,
         "d": sampler.model.size,
         "iterations": [num_warmup, num_samples],
         "seed": seed + 1,
+        "n_seeds": seeds,
         "warm_up_s": warm_up_s,
-        "wall_s": wall,
-        "min_ess": min_ess,
-        "min_ess_per_s": min_ess / wall,
-        "median_ess": float(np.median(list(ess_vals.values()))),
-        "max_rhat": max(rhat_vals.values()),
-        "divergence_rate": float(stats["divergences"].sum())
-        / (num_chains * num_samples),
-        "vs_exmc": min_ess / wall / ref_exmc,
-        "vs_pymc": min_ess / wall / ref_pymc,
-        "mean_depth": float(stats["depth"].mean()),
-        "host_syncs": sampler.last_run["host_syncs"],
-        "host_syncs_per_iter": sampler.last_run["host_syncs"] / iters,
+        **med,
+        "vs_exmc": med["min_ess_per_s"] / ref_exmc,
+        "vs_pymc": med["min_ess_per_s"] / ref_pymc,
+        "host_syncs": host_syncs,
+        "host_syncs_per_iter": host_syncs / iters,
         "iw_accept_mean": (float(stats["iw_accept"].mean())
                            if "iw_accept" in stats else None),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
         "all_finite": bool(all(np.isfinite(v).all() for v in trace.values())),
         "posterior": posterior_summary(name, trace),
+        "per_seed": per_seed,
     }
+
+
+def run_suite(models=None, **kwargs):
+    """``run_model`` of every suite model (or those named in ``models``)
+    with the same keyword arguments: {name: result}."""
+    return {name: run_model(name, **kwargs) for name in models or MODELS}
 
 
 def check_step_syncs(name):

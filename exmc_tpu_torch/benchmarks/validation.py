@@ -396,10 +396,13 @@ def run_named_gold(name, recipe="card", device="cuda", check_compile=True):
 
 
 def validate(num_warmup=1000, num_samples=1000, num_chains=4, seed=42,
-             verbose=True, models=None, device=None):
+             verbose=True, models=None, device=None, full=True):
     """Run the battery (every gold, or those named in ``models``) on the
-    port's sampler; the defaults are the JAX battery's recipe. Returns
-    (n_pass, results)."""
+    port's sampler; the defaults are the JAX battery's recipe. ``full``:
+    the whole battery, else the core six. Returns (n_pass, results)."""
+    if not full:
+        core = {gold_name(m) for m in CORE_GOLD_STANDARDS}
+        models = core if models is None else [m for m in models if m in core]
     results = []
     for gs in build_golds(models).values():
         res = run_gold(gs, num_chains, num_warmup, num_samples, seed, device)

@@ -18,6 +18,12 @@ harmonic-mean accept probability; the diagonal metric by the chains'
 Welford moments merged at the window ends of the NUTS schedule; SNAPER's
 principal component by a damped power iteration.
 
+The chains form G groups of consecutive chains, each an independent
+ensemble adapting from its own chains only (``run_groups``; SBC runs one
+replication a group): every cross-chain statistic is the one-ensemble
+function vmapped over the group axis, and each group has its own step
+size, T, metric and L. ``sample_chees`` is the run of one group.
+
 Randomness: per iteration a momentum draw z (C, d) and an accept
 uniform (C,) from one ``torch.Generator`` seeded from ``seed`` (inits
 from a second one, as in the NUTS sampler); ``_run`` takes a carry and
@@ -29,6 +35,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from exmc_tpu_torch.config import default_dtype
 from exmc_tpu_torch.engines_common import (
@@ -160,46 +167,80 @@ class _Kernel:
         self.window_end = schedule.window_end
 
 
-def _init_carry(vag_fn, q0, logp0, grad0, z_eps, criterion, syncs):
+def _per_group(fn, g, *args, in_dims=0):
+    """``fn`` of one ensemble applied to each of ``g`` groups: chain
+    tensors (``in_dims`` 0) come viewed as (G, M, ...) and per-group
+    state with its leading G axis; an ``in_dims`` of None passes the
+    argument whole. One group calls ``fn`` itself, with no batching rule
+    in between, so a single ensemble computes exactly what ``fn`` does."""
+    dims = in_dims if isinstance(in_dims, tuple) else (in_dims,) * len(args)
+    if g == 1:
+        out = fn(*(a if dim is None else tree_map(lambda t: t[0], a)
+                   for a, dim in zip(args, dims)))
+        return tree_map(lambda t: t.unsqueeze(0), out)
+    return torch.func.vmap(fn, in_dims=dims)(*args)
+
+
+def _by_group(t, g):
+    return t.reshape((g, t.shape[0] // g) + tuple(t.shape[1:]))
+
+
+def _init_carry(vag_first, q0, logp0, grad0, z_eps, criterion, syncs):
     """The carry the JAX package's warmup scan starts from, after its
-    init search: one reasonable step size from chain 0 and T = 8 eps."""
+    init search, for G = ``z_eps.shape[0]`` groups of consecutive chains:
+    each group's step size searched from its first chain with its row of
+    ``z_eps`` (G, d), and T = 8 eps. ``vag_first`` is the value-and-grad
+    of those G chains (with their data rows). The tuning state has a
+    leading G axis."""
     c, d = q0.shape
+    g = z_eps.shape[0]
+    m = c // g
     dt, dev = q0.dtype, q0.device
-    inv0 = torch.ones(d, dtype=dt, device=dev)
-    metric0 = Metric(inv=inv0, chol_inv=torch.sqrt(inv0))
-    eps0 = find_reasonable_epsilon(vag_fn, q0[:1], logp0[:1], grad0[:1], metric0,
-                                   z_eps, syncs=syncs)[0]
+    ones = torch.ones(d, dtype=dt, device=dev)
+    eps0 = find_reasonable_epsilon(vag_first, q0[::m], logp0[::m], grad0[::m],
+                                   Metric(inv=ones, chol_inv=torch.sqrt(ones)), z_eps,
+                                   syncs=syncs)
     log_t0 = torch.log(8.0 * eps0)
-    zero = torch.zeros((), dtype=dt, device=dev)
+    zero = torch.zeros(g, dtype=dt, device=dev)
     carry = dict(q=q0, logp=logp0, grad=grad0, da=da_init(eps0), logT=log_t0,
-                 logT_bar=log_t0, adam_m=zero, adam_v=zero, adam_t=zero, inv=inv0,
-                 wf=welford_init(c, d, dt, dev))
+                 logT_bar=log_t0, adam_m=zero, adam_v=zero, adam_t=zero,
+                 inv=torch.ones(g, d, dtype=dt, device=dev), wf=welford_init(c, d, dt, dev))
     if criterion == "snaper":
-        carry["pc"] = torch.full((d,), 1.0 / math.sqrt(d), dtype=dt, device=dev)
+        carry["pc"] = torch.full((g, d), 1.0 / math.sqrt(d), dtype=dt, device=dev)
     return carry
 
 
-def _num_steps(u, T, eps, max_num_steps):
-    """L = clip(ceil(u T / eps), 1, max_num_steps) as a host int (one
-    sync); a NaN converts to 0 and an overflow saturates, as XLA's
-    float-to-int conversion does."""
-    lf = torch.ceil(u * T / eps)
-    lf = torch.nan_to_num(lf, nan=0.0, posinf=float(max_num_steps),
-                          neginf=0.0)
-    return int(torch.clamp(lf, 1, max_num_steps))
-
-
 def _transition(vag_fn, carry, u, eps, T, z, un, max_num_steps):
-    """One jittered-trajectory HMC move of the whole batch."""
-    inv = carry["inv"]
+    """One jittered-trajectory HMC move of the whole batch, each group
+    with its own eps and T (G,) and so its own L = clip(ceil(u T / eps),
+    1, max_num_steps): one host read of the G counts, then as many steps
+    as the longest, a group's chains frozen once its L steps are done."""
+    c = carry["q"].shape[0]
+    m = c // eps.shape[0]
+    inv = carry["inv"].repeat_interleave(m, 0)
     metric = Metric(inv=inv, chol_inv=torch.sqrt(inv))
-    n_steps = _num_steps(u, T, eps, max_num_steps)
-    tlen = float(n_steps) * eps  # the length actually integrated
+    # a NaN converts to 0 and an overflow saturates, as XLA's float-to-int
+    # conversion does
+    lf = torch.nan_to_num(torch.ceil(u * T / eps), nan=0.0,
+                          posinf=float(max_num_steps), neginf=0.0)
+    n_steps = torch.clamp(lf, 1, max_num_steps).to(torch.int64)
+    n_host = n_steps.cpu().numpy()  # the one sync
+    tlen = n_steps.to(eps.dtype) * eps  # the length actually integrated
+    eps_chain = eps.repeat_interleave(m).unsqueeze(-1)
     p0 = sample_momentum(metric, z)
     joint0 = carry["logp"] - kinetic_energy(metric, p0)
     q1, p1, logp1, grad1 = carry["q"], p0, carry["logp"], carry["grad"]
-    for _ in range(n_steps):
-        q1, p1, logp1, grad1 = leapfrog(vag_fn, q1, p1, grad1, eps, metric)
+    if n_host.min() == n_host.max():
+        for _ in range(int(n_host[0])):
+            q1, p1, logp1, grad1 = leapfrog(vag_fn, q1, p1, grad1, eps_chain, metric)
+    else:
+        n_chain = n_steps.repeat_interleave(m).unsqueeze(-1)
+        for step in range(int(n_host.max())):
+            qn, pn, ln, gn = leapfrog(vag_fn, q1, p1, grad1, eps_chain, metric)
+            act = step < n_chain
+            q1, p1, grad1 = (torch.where(act, qn, q1), torch.where(act, pn, p1),
+                             torch.where(act, gn, grad1))
+            logp1 = torch.where(act[:, 0], ln, logp1)
     joint1 = logp1 - kinetic_energy(metric, p1)
     delta = joint1 - joint0
     # a non-finite gradient is rejected even with a finite energy: grad
@@ -214,26 +255,29 @@ def _transition(vag_fn, carry, u, eps, T, z, un, max_num_steps):
                 logp=torch.where(take, logp1, carry["logp"]),
                 grad=torch.where(tk, grad1, carry["grad"]),
                 accept_prob=accept_prob, diverging=delta < -1000.0,
-                energy=-torch.where(take, joint1, joint0), num_steps=n_steps,
+                energy=-torch.where(take, joint1, joint0), num_steps=n_host,
                 metric=metric, q1=q1, p1=p1, tlen=tlen)
 
 
 def _warm_step(vag_fn, carry, i, kernel, z, un, target_accept, max_num_steps,
                criterion):
+    g = carry["logT"].shape[0]
     eps = torch.exp(carry["da"].log_eps)
     T = torch.exp(carry["logT"])
     mv = _transition(vag_fn, carry, float(kernel.halton[i]), eps, T, z, un,
                      max_num_steps)
     # trajectory length: Adam on the criterion gradient
     v1 = velocity(mv["metric"], mv["p1"])
+    q0, q1, v1, acc = (_by_group(t, g) for t in (carry["q"], mv["q1"], v1,
+                                                  mv["accept_prob"]))
     if criterion == "snaper":
-        g = _snaper_grad(carry["q"], mv["q1"], v1, mv["accept_prob"], mv["tlen"],
-                         carry["pc"], carry["inv"])
+        grad = _per_group(_snaper_grad, g, q0, q1, v1, acc, mv["tlen"], carry["pc"],
+                          carry["inv"])
     else:
-        g = _chees_grad(carry["q"], mv["q1"], v1, mv["accept_prob"], mv["tlen"])
+        grad = _per_group(_chees_grad, g, q0, q1, v1, acc, mv["tlen"])
     t_adam = carry["adam_t"] + 1.0
-    m = ADAM_B1 * carry["adam_m"] + (1 - ADAM_B1) * g
-    v = ADAM_B2 * carry["adam_v"] + (1 - ADAM_B2) * g * g
+    m = ADAM_B1 * carry["adam_m"] + (1 - ADAM_B1) * grad
+    v = ADAM_B2 * carry["adam_v"] + (1 - ADAM_B2) * grad * grad
     m_hat = m / (1 - ADAM_B1 ** t_adam)
     v_hat = v / (1 - ADAM_B2 ** t_adam)
     log_t = carry["logT"] + ADAM_LR * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
@@ -241,33 +285,39 @@ def _warm_step(vag_fn, carry, i, kernel, z, un, target_accept, max_num_steps,
     eta = (t_adam + 10.0) ** -0.75
     log_t_bar = eta * log_t + (1 - eta) * carry["logT_bar"]
     # step size: dual averaging on the harmonic-mean accept
-    da = da_update(carry["da"], _harmonic_accept(mv["accept_prob"]), target_accept)
+    da = da_update(carry["da"], _per_group(_harmonic_accept, g, acc), target_accept)
     # pooled metric at the window ends; divergent draws excluded
     enabled = ~mv["diverging"] & bool(kernel.update_mass[i])
     wf = welford_update(carry["wf"], mv["q"], enabled)
     inv = carry["inv"]
     if kernel.window_end[i]:
-        inv = welford_finalize(welford_merge_across(wf), inv)
+        merged = _per_group(welford_merge_across, g,
+                            type(wf)(*(_by_group(f, g) for f in wf)))
+        inv = welford_finalize(merged, inv)
         c, d = mv["q"].shape
         wf = welford_init(c, d, mv["q"].dtype, mv["q"].device)
     new = dict(q=mv["q"], logp=mv["logp"], grad=mv["grad"], da=da, logT=log_t,
                logT_bar=log_t_bar, adam_m=m, adam_v=v, adam_t=t_adam, inv=inv, wf=wf)
     if criterion == "snaper":
-        new["pc"] = _oja_update(carry["pc"], mv["q"], carry["inv"], enabled,
-                                torch.as_tensor(float(i), dtype=g.dtype, device=g.device))
+        t = torch.as_tensor(float(i), dtype=grad.dtype, device=grad.device)
+        new["pc"] = _per_group(_oja_update, g, carry["pc"], _by_group(mv["q"], g),
+                               carry["inv"], _by_group(enabled, g), t,
+                               in_dims=(0, 0, 0, 0, None))
     return new, mv
 
 
 def _run(vag_fn, carry, kernel, target_accept, max_num_steps, criterion, rand,
          syncs, on_iter=None, first=0, last=None):
     """Iterations ``first`` .. ``last`` (default: to the end) of the
-    warmup and sampling from ``carry``. ``rand(i) -> (z (C, d), un (C,))``
-    gives iteration i's draws; ``on_iter(i, carry, num_steps)`` sees the
-    carry after each. Returns (carry, outs) with outs chains-first
-    (C, samples run, ...) and ``num_steps`` the sampling iterations' L."""
+    warmup and sampling from ``carry`` (its groups: the leading axis of
+    its tuning state). ``rand(i) -> (z (C, d), un (C,))`` gives iteration
+    i's draws; ``on_iter(i, carry, num_steps (G,))`` sees the carry after
+    each. Returns (carry, outs) with outs chains-first (C, samples run,
+    ...) and ``num_steps`` the sampling iterations' L (samples run, G)."""
     total = kernel.num_warmup + kernel.num_samples
     last = total if last is None else last
     c, d = carry["q"].shape
+    g = carry["logT"].shape[0]
     dt, dev = carry["q"].dtype, carry["q"].device
     ns = max(last - max(first, kernel.num_warmup), 0)
     outs = {"q": torch.empty(c, ns, d, dtype=dt, device=dev),
@@ -279,7 +329,7 @@ def _run(vag_fn, carry, kernel, target_accept, max_num_steps, criterion, rand,
     eps = T = None
     for i in range(first, last):
         z, un = rand(i)
-        syncs.count += 1  # L
+        syncs.count += 1  # the G step counts
         if i < kernel.num_warmup:
             carry, mv = _warm_step(vag_fn, carry, i, kernel, z, un, target_accept,
                                    max_num_steps, criterion)
@@ -296,8 +346,56 @@ def _run(vag_fn, carry, kernel, target_accept, max_num_steps, criterion, rand,
             num_steps.append(mv["num_steps"])
         if on_iter is not None:
             on_iter(i, carry, mv["num_steps"])
-    outs["num_steps"] = np.asarray(num_steps, np.int64)
+    outs["num_steps"] = np.asarray(num_steps, np.int64).reshape(-1, g)
     return carry, outs
+
+
+def run_groups(model, ddata, groups, chains_per_group, num_warmup, num_samples, seed,
+               criterion="chees", target_accept=0.651, max_num_steps=1024,
+               q_inits=None, kernel=None):
+    """ChEES (or SNAPER) on ``groups`` independent ensembles of
+    ``chains_per_group`` consecutive chains as one batch; ``ddata`` (a
+    ``DeviceData`` or None) carries a leading axis of groups *
+    chains_per_group rows, or 1. The chains start from ``q_inits`` (C, d)
+    or overdispersed draws; inits, the step-size search's normals (G, d)
+    and the per-iteration draws come from generators seeded from
+    ``seed``. Returns (outs, final carry, host syncs)."""
+    from exmc_tpu_torch.nuts.sampler import (
+        CHAIN_SEED_STRIDE,
+        INIT_SEED_OFFSET,
+        _find_valid_init,
+        _init_position,
+    )
+
+    c, d = groups * chains_per_group, model.size
+    dt, dev = default_dtype(), model.device
+
+    def vag_fn(q):
+        return model.value_and_grad(q, ddata)
+
+    syncs = HostSyncs()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if q_inits is None:
+        init_gen = torch.Generator(device=dev)
+        init_gen.manual_seed(seed * CHAIN_SEED_STRIDE + INIT_SEED_OFFSET)
+        q_inits = _init_position(init_gen, (c, d), dt, dev)
+    q0, logp0, grad0 = _find_valid_init(vag_fn, q_inits, gen, syncs=syncs)
+    eps_gen = torch.Generator(device=dev)
+    eps_gen.manual_seed(seed + EPS_SEARCH_SEED_OFFSET)
+    z_eps = torch.randn(groups, d, generator=eps_gen, dtype=dt, device=dev)
+    first = None if ddata is None else ddata.rows(slice(None, None, chains_per_group))
+    carry = _init_carry(lambda q: model.value_and_grad(q, first), q0, logp0, grad0, z_eps,
+                        criterion, syncs)
+
+    def rand(i):
+        return (torch.randn(c, d, generator=gen, dtype=dt, device=dev),
+                torch.rand(c, generator=gen, dtype=dt, device=dev))
+
+    kernel = kernel or _Kernel(num_warmup, num_samples)
+    carry, outs = _run(vag_fn, carry, kernel, target_accept, max_num_steps, criterion,
+                       rand, syncs)
+    return outs, carry, syncs.count
 
 
 _KERNEL_CACHE = KernelCache()
@@ -322,13 +420,6 @@ def sample_chees(ir, *, num_chains=64, num_warmup=500, num_samples=1000,
     caps L. ``init`` is a dict of constrained values that every chain
     starts from. ``mesh`` (chains sharded over devices) is multi-device
     work that the port has not taken on."""
-    from exmc_tpu_torch.nuts.sampler import (
-        CHAIN_SEED_STRIDE,
-        INIT_SEED_OFFSET,
-        _find_valid_init,
-        _init_position,
-    )
-
     if criterion not in ("chees", "snaper"):
         raise ValueError(f"unknown criterion {criterion!r} (chees|snaper)")
     if num_chains < 2:
@@ -345,42 +436,22 @@ def sample_chees(ir, *, num_chains=64, num_warmup=500, num_samples=1000,
     d = model.size
     if d == 0:
         return {}, {"note": "model has no free parameters"}
-    dt, dev = default_dtype(), model.device
     ddata = run_data(ir, model, data)
-
-    def vag_fn(q):
-        return model.value_and_grad(q, ddata)
-
-    syncs = HostSyncs()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    init_gen = torch.Generator(device=dev)
-    init_gen.manual_seed(seed * CHAIN_SEED_STRIDE + INIT_SEED_OFFSET)
+    q_inits = None
     if init is not None:
-        q_inits = model.unconstrain(init).to(dt).expand(num_chains, d).clone()
-    else:
-        q_inits = _init_position(init_gen, (num_chains, d), dt, dev)
-    q0, logp0, grad0 = _find_valid_init(vag_fn, q_inits, gen, syncs=syncs)
-    eps_gen = torch.Generator(device=dev)
-    eps_gen.manual_seed(seed + EPS_SEARCH_SEED_OFFSET)
-    z_eps = torch.randn(1, d, generator=eps_gen, dtype=dt, device=dev)
-    carry = _init_carry(vag_fn, q0, logp0, grad0, z_eps, criterion, syncs)
-
-    def rand(i):
-        return (torch.randn(num_chains, d, generator=gen, dtype=dt, device=dev),
-                torch.rand(num_chains, generator=gen, dtype=dt, device=dev))
-
-    carry, outs = _run(vag_fn, carry, kernel, target_accept, max_num_steps,
-                       criterion, rand, syncs)
+        q_inits = model.unconstrain(init).to(default_dtype()).expand(num_chains, d).clone()
+    outs, carry, n_syncs = run_groups(model, ddata, 1, num_chains, num_warmup, num_samples,
+                                      seed, criterion, target_accept, max_num_steps,
+                                      q_inits=q_inits, kernel=kernel)
     extra = {
-        "step_size": da_finalize(carry["da"]).cpu().numpy(),
-        "trajectory_length": torch.exp(carry["logT_bar"]).cpu().numpy(),
-        "inv_mass": carry["inv"].cpu().numpy(),
+        "step_size": da_finalize(carry["da"])[0].cpu().numpy(),
+        "trajectory_length": torch.exp(carry["logT_bar"])[0].cpu().numpy(),
+        "inv_mass": carry["inv"][0].cpu().numpy(),
         "num_steps_mean": float(outs["num_steps"].mean()) if num_samples else float("nan"),
-        "host_syncs": syncs.count,
+        "host_syncs": n_syncs,
     }
     if criterion == "snaper":
-        extra["principal_component"] = carry["pc"].cpu().numpy()
+        extra["principal_component"] = carry["pc"][0].cpu().numpy()
     return postprocess_ensemble(outs, model, ddata, return_unconstrained, extra)
 
 

@@ -19,6 +19,9 @@ the axes between the chain axis and those broadcast right-aligned, as
 they do for one point in JAX. Det ops that are not elementwise
 (``matmul``, ``dot``, ``getitem``, ``smul``, ``cumsum``, ``stack``,
 ``concat``) act on the event axes and take their operands unaligned.
+A user's det callable sees one point, as in JAX: it is applied with
+``torch.func.vmap`` over the chain axis (``_per_point``); only the Stan
+frontend's factor callables take the aligned batch (``ir._batched``).
 
 Non-centered latents are rebuilt as ``mu + sigma * z``, and a
 GaussianRandomWalk latent as ``sigma * cumsum(z)``, with ``z = V w``
@@ -48,10 +51,23 @@ from exmc_tpu_torch import transforms as tf
 from exmc_tpu_torch.config import default_dtype, prepare_device
 from exmc_tpu_torch.dists.base import get as get_dist
 from exmc_tpu_torch.dists.composite import CENSORED
-from exmc_tpu_torch.ir import IR
+from exmc_tpu_torch.ir import IR, _is_batched
 from exmc_tpu_torch.point_map import PointMap
 
 OBS_DATA_KEY = "__obs_data"
+
+
+def _resolve_value(value, data):
+    """An observation's value in raw form: an array, a {"lower",
+    "upper"} dict, ``"__obs_data"`` (the data, or its ``"__base"``) or
+    a keyed ``("__obs_data", key)`` ref (``data[key]``)."""
+    if isinstance(value, str):
+        if value == OBS_DATA_KEY:
+            return _base_data(data)
+        raise ValueError(f"bad obs value ref: {value!r}")
+    if isinstance(value, tuple) and len(value) == 2 and value[0] == OBS_DATA_KEY:
+        return data[value[1]]
+    return value
 
 
 def _event_mean(x):
@@ -143,6 +159,56 @@ UNALIGNED_DET_OPS = {
     "stack": _stack,
     "concat": _concat,
 }
+
+
+def _per_point(nid, fn, args):
+    """A user callable of det node ``nid`` applied one point at a time,
+    as the JAX package applies it: ``torch.func.vmap`` over the chain
+    axis. An argument with a chain axis of 1 (a constant, or data) goes
+    in whole with that axis dropped, unless every argument has it (a
+    batch of one chain); a 0-d scalar goes in whole. An argument with
+    another number of rows than the batch (data of other chains), or a
+    callable that cannot run under vmap (a shape that depends on the
+    values, a host read), raises an error that names the node."""
+    c = max((a.shape[0] for a in args if isinstance(a, torch.Tensor) and a.ndim),
+            default=0)
+    if c == 0:
+        out = fn(*args)
+        return out.unsqueeze(0) if isinstance(out, torch.Tensor) and out.ndim else out
+    xs, dims = [], []
+    for a in args:
+        if not isinstance(a, torch.Tensor) or a.ndim == 0:
+            xs.append(a)
+            dims.append(None)
+        elif a.shape[0] == c:
+            xs.append(a)
+            dims.append(0)
+        elif a.shape[0] == 1:
+            xs.append(a[0])
+            dims.append(None)
+        else:
+            raise ValueError(
+                f"det node {nid!r}: an argument has {a.shape[0]} rows where the "
+                f"batch has {c} chains (one row, or one per chain)")
+    try:
+        return torch.func.vmap(fn, in_dims=tuple(dims))(*xs)
+    except Exception as e:  # noqa: BLE001 - re-raised with the node's name
+        raise ValueError(
+            f"det node {nid!r}: its callable must run on one point at a time "
+            f"under torch.func.vmap over the chain axis, and it failed there "
+            f"({type(e).__name__}: {e})") from e
+
+
+def _apply_det(nid, fn, args):
+    """Det node ``nid``'s value from its resolved args: a table op, a
+    Stan factor callable (``ir._batched``) on the aligned batch, any other
+    callable one point at a time."""
+    if isinstance(fn, str) and fn in UNALIGNED_DET_OPS:
+        return UNALIGNED_DET_OPS[fn](*args)
+    if isinstance(fn, str) or _is_batched(fn):
+        fn = DET_OPS[fn] if isinstance(fn, str) else fn
+        return fn(*_align(args))
+    return _per_point(nid, fn, args)
 
 
 def _grw_spectral_basis(t):
@@ -296,6 +362,12 @@ class DeviceData:
             return DeviceData(dict(zip(sorted(self.value), leaves)))
         return DeviceData(leaves[0])
 
+    def rows(self, index):
+        """The data of the chains ``index`` picks: leaves with one row per
+        chain indexed, the others (one row for all) kept."""
+        return self.with_leaves([v[index] if v.ndim and v.shape[0] > 1 else v
+                                 for v in self.leaves()])
+
 
 def _device_value(data, device):
     """The compiled form of ``data`` (raw arrays, a dict of them, or a
@@ -354,12 +426,14 @@ class CompiledModel:
         the GRW and affine kinds included (``exmc_tpu/compiler.py:106``).
         A mu or sigma that names a det node is evaluated over the point's
         values, the NCP nodes' inverted first."""
+        return self.unconstrain_batch({k: np.asarray(v)[None] for k, v in xmap.items()})[0]
+
+    def unconstrain_batch(self, xmap):
+        """``unconstrain`` of N points at once: {name: (N, *shape)} ->
+        (N, d)."""
         dev = self.device
-
-        def batch1(v):
-            return torch.as_tensor(np.array(v, np.float32), device=dev).unsqueeze(0)
-
-        xmap = {k: batch1(v) for k, v in xmap.items()}
+        xmap = {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+                for k, v in xmap.items()}
         zmap = dict(xmap)
         val = None
 
@@ -383,7 +457,7 @@ class CompiledModel:
             _, val = graph.resolver(self.pm.unpack(self.pm.to_unconstrained(zmap)), graph.data)
             for nid, info in pending.items():
                 invert(nid, info)
-        return self.pm.to_unconstrained(zmap)[0]
+        return self.pm.to_unconstrained(zmap)
 
 
 class _Graph:
@@ -392,6 +466,7 @@ class _Graph:
 
     def __init__(self, ir: IR, pm: PointMap, device, data=None):
         self.ir = ir
+        self.device = device
         self.free_ids = {e.id for e in pm.entries}
         prep = self._prep_factory(device)
         self.data = _device_value(data, device)
@@ -445,6 +520,20 @@ class _Graph:
                                  dtype=default_dtype(), device=device)
             for nid, info in ir.ncp_info.items() if info.get("spectral")
         }
+
+    def check_callables(self, pm):
+        """Resolve every det node holding a per-point callable once, on a
+        batch of two zero points, so that a callable vmap cannot run
+        fails at compile time with the node's name."""
+        ids = [nid for nid, n in self.ir.nodes.items()
+               if n.op[0] == "det" and not isinstance(n.op[1], str)
+               and not _is_batched(n.op[1])]
+        if not ids:
+            return
+        flat = torch.zeros(2, pm.size, dtype=default_dtype(), device=self.device)
+        resolve, _ = self.resolver(pm.unpack(flat), self.data)
+        for nid in sorted(ids):
+            resolve(nid)
 
     def _prep_meas(self, nid, op_info, prep):
         """A measurable lift's operands; a matmul lift of a constant
@@ -509,12 +598,7 @@ class _Graph:
             tag = node.op[0]
             if tag == "det":
                 fn = node.op[1]
-                args = [val(a) for a in self.args[ref]]
-                if isinstance(fn, str) and fn in UNALIGNED_DET_OPS:
-                    out = UNALIGNED_DET_OPS[fn](*args)
-                else:
-                    fn = DET_OPS[fn] if isinstance(fn, str) else fn
-                    out = fn(*_align(args))
+                out = _apply_det(ref, fn, [val(a) for a in self.args[ref]])
             elif tag == "rv":
                 if ref not in self.free_ids:
                     raise ValueError(
@@ -735,6 +819,7 @@ def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
     rw = ir if rewritten else rewrite.apply(ir, ncp=ncp)
     pm = PointMap.build(rw)
     graph = _Graph(rw, pm, dev, rw.data)
+    graph.check_callables(pm)
     logp = _make_logp(graph, pm)
     vag = _make_value_and_grad(logp)
     return CompiledModel(ir=rw, pm=pm, ncp_info=rw.ncp_info, logp=logp,
@@ -782,3 +867,7 @@ def constrain_flat(ir: IR, pm: PointMap, flat, data=None) -> dict:
     """(N, d) flat -> {name: (N, *shape)} constrained values with NCP
     reconstruction. ``data`` overrides ``ir.data``."""
     return constrainer(ir, pm, flat.device, data)(flat)
+
+
+# the JAX package's name for the compile of a sampler's model
+compile_for_sampling = compile_logp

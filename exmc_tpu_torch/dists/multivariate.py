@@ -62,7 +62,8 @@ class MvNormal(Distribution):
         chol = (torch.linalg.cholesky(rs.as_tensor(params["cov"], generator))
                 if "cov" in params else rs.as_tensor(params["chol"], generator))
         z = rs.randn(tuple(shape) if shape else mu.shape, generator)
-        return mu + z @ chol.transpose(-1, -2)
+        # z L^T row by row, so a batch of factors pairs with a batch of z
+        return mu + torch.matmul(z.unsqueeze(-2), chol.transpose(-1, -2)).squeeze(-2)
 
 
 class Dirichlet(Distribution):

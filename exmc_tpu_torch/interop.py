@@ -137,8 +137,11 @@ def ensemble_state_from_numpy(carry, device=None):
     the dual-averaging state, logT, logT_bar, the Adam moments and count,
     the inverse mass, the per-chain Welford state, SNAPER's principal
     component, MEADS's momentum u), its arrays as numpy, as the port's
-    carry on ``device``. The PRNG keys are dropped: the port's draws come
-    from a generator or are injected."""
+    carry on ``device``: one group, its tuning state (the dual-averaging
+    state, logT, logT_bar, the Adam moments and count, the inverse mass,
+    the principal component) with a leading group axis of 1. The PRNG
+    keys are dropped: the port's draws come from a generator or are
+    injected."""
     from exmc_tpu_torch.nuts.mass_matrix import WelfordState
     from exmc_tpu_torch.nuts.step_size import DualAveragingState
 
@@ -148,11 +151,45 @@ def ensemble_state_from_numpy(carry, device=None):
         if k == "keys":
             continue
         if k == "da":
-            out[k] = DualAveragingState(*(_tensors(getattr(v, f), dev)
+            out[k] = DualAveragingState(*(_tensors(getattr(v, f), dev)[None]
                                           for f in DualAveragingState._fields))
         elif k == "wf":
             out[k] = WelfordState(*(_tensors(getattr(v, f), dev)
                                     for f in WelfordState._fields))
-        else:
+        elif k in ("q", "logp", "grad", "u"):
             out[k] = _tensors(v, dev)
+        else:
+            out[k] = _tensors(v, dev)[None]
     return out
+
+
+def flow_from_numpy(params, device=None):
+    """A ``flows.CouplingFlow`` on ``device`` from the JAX package's flow
+    parameters (``FlowFit.params``: {"mu", "log_s", "layers": [{"w1",
+    "b1", "w2", "b2"}, ...]}, arrays as numpy), computing the same
+    flow."""
+    from exmc_tpu_torch.flows import CouplingFlow
+
+    dev = prepare_device(device)
+    mu = np.asarray(params["mu"])
+    layers = params["layers"]
+    d, hidden = mu.shape[0], np.asarray(layers[0]["w1"]).shape[1]
+    flow = CouplingFlow(d, len(layers), hidden, device=dev)
+    with torch.no_grad():
+        flow.mu.copy_(torch.as_tensor(np.array(mu)))
+        flow.log_s.copy_(torch.as_tensor(np.array(params["log_s"])))
+        for k, layer in enumerate(layers):
+            for name in ("w1", "b1", "w2", "b2"):
+                getattr(flow, name)[k].copy_(torch.as_tensor(np.array(layer[name])))
+    return flow
+
+
+def flow_to_numpy(flow):
+    """The inverse of ``flow_from_numpy``: the JAX package's parameter
+    layout, as numpy arrays."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    return {"mu": arr(flow.mu), "log_s": arr(flow.log_s),
+            "layers": [{name: arr(getattr(flow, name)[k]) for name in ("w1", "b1", "w2", "b2")}
+                       for k in range(flow.num_layers)]}

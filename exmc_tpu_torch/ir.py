@@ -120,10 +120,29 @@ class Builder:
     @staticmethod
     def det(ir: IR, node_id: str, fn, args: list) -> IR:
         """Add a deterministic node: ``fn`` is a name from the compiler's
-        det-op table or a callable taking the resolved args."""
+        det-op table or a callable taking the resolved args.
+
+        A callable sees ONE point, as in the JAX package: the compiler
+        applies it with ``torch.func.vmap`` over the chain axis, so
+        ``lambda th: th.sum()`` sums a point's own elements and
+        ``lambda th: th[idx]`` indexes them. It must be vmap-able (no
+        value-dependent shapes, no host reads); one that is not fails
+        at compile time naming the node."""
         deps = tuple(a for a in args if isinstance(a, str))
         node = Node(id=node_id, op=("det", fn, tuple(args)), deps=deps)
         return ir.add_node(node)
+
+
+def _batched(fn):
+    """Mark a det callable of the Stan frontend's factor nodes as written
+    for the batched values (a leading chain axis, 1 for constants): the
+    compiler calls it on the aligned batch, not one point at a time."""
+    fn._exmc_batched = True
+    return fn
+
+
+def _is_batched(fn) -> bool:
+    return bool(getattr(fn, "_exmc_batched", False))
 
 
 def observed_target_ids(ir: IR) -> set:

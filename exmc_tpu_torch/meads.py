@@ -15,6 +15,12 @@ the graph captured for that shape.
 
 ``num_warmup`` is discarded burn-in: the kernel never freezes.
 
+The chains form G groups, each an independent ensemble tuned from its
+own chains only (``run_groups``; SBC runs one replication a group):
+each fold stage of every group is one value-and-grad, and the fold
+statistics are ``_fold_tuning`` vmapped over the group axis.
+``sample_meads`` is the run of one group.
+
 Randomness: the initial momentum (C, d), and per iteration the refresh
 normals (C, d) and the accept uniforms (C,), in chain order (fold-major),
 from one ``torch.Generator`` seeded from ``seed``; ``_run`` takes a
@@ -28,7 +34,7 @@ import warnings
 import numpy as np
 import torch
 
-from exmc_tpu_torch.chees import _halton_base2
+from exmc_tpu_torch.chees import _halton_base2, _per_group
 from exmc_tpu_torch.config import default_dtype
 from exmc_tpu_torch.engines_common import (
     KernelCache,
@@ -85,32 +91,40 @@ class _Kernel:
                        ).astype(np.float32)
 
 
-def _step(vag_fn, carry, u_i, xi, un, num_folds, step_size_scale, max_step_size):
-    """One iteration: the K fold stages in turn. Returns (carry, outputs
-    in chain order, eps (K,), gamma (K,))."""
+def _step(vag_fold, carry, u_i, xi, un, num_folds, step_size_scale, max_step_size,
+          groups):
+    """One iteration of ``groups`` independent ensembles as one batch,
+    each group's chains consecutive and fold-major within it: the K fold
+    stages in turn, fold k's stage for every group at once (one
+    (G * C / (G K), d) value-and-grad, ``vag_fold``), each group tuned by
+    ``_fold_tuning`` of its own fold k-1. Returns (carry, outputs in
+    chain order, eps (G, K), gamma (G, K))."""
     c, d = carry["q"].shape
-    per = c // num_folds
-    q = list(carry["q"].reshape(num_folds, per, d).unbind(0))
-    logp = list(carry["logp"].reshape(num_folds, per).unbind(0))
-    grad = list(carry["grad"].reshape(num_folds, per, d).unbind(0))
-    u = list(carry["u"].reshape(num_folds, per, d).unbind(0))
-    xi = xi.reshape(num_folds, per, d)
-    un = un.reshape(num_folds, per)
+    g, k_ = groups, num_folds
+    per = c // (g * k_)
+
+    def folds(t):
+        return list(t.reshape((g, k_, per) + tuple(t.shape[1:])).unbind(1))
+
+    q, logp, grad, u = (folds(carry[n]) for n in ("q", "logp", "grad", "u"))
+    xi, un = folds(xi), folds(un)
     acc_f, div_f, en_f, eps_f, gam_f = [], [], [], [], []
-    for k in range(num_folds):
-        prev = (k - 1) % num_folds
-        sigma, eps, gamma = _fold_tuning(q[prev], grad[prev])
+    for k in range(k_):
+        prev = (k - 1) % k_
+        sigma, eps, gamma = _per_group(_fold_tuning, g, q[prev], grad[prev])
         eps = eps * (step_size_scale * u_i)
         if max_step_size is not None:
             eps = torch.clamp_max(eps, max_step_size)
         alpha = torch.exp(-gamma * eps)
+        e3, a3, s3 = eps[:, None, None], alpha[:, None, None], sigma[:, None, :]
         # partial refresh of the standardized momentum (N(0, I)-invariant)
-        uk = alpha * u[k] + torch.sqrt(1.0 - alpha ** 2) * xi[k]
+        uk = a3 * u[k] + torch.sqrt(1.0 - a3 ** 2) * xi[k]
         joint0 = logp[k] - 0.5 * torch.sum(uk * uk, dim=-1)
-        u_half = uk + 0.5 * eps * sigma * grad[k]
-        q1 = q[k] + eps * sigma * u_half
-        logp1, grad1 = vag_fn(q1)
-        u1 = u_half + 0.5 * eps * sigma * grad1
+        u_half = uk + 0.5 * e3 * s3 * grad[k]
+        q1 = q[k] + e3 * s3 * u_half
+        logp1, grad1 = vag_fold(q1.reshape(g * per, d))
+        logp1, grad1 = logp1.reshape(g, per), grad1.reshape(g, per, d)
+        u1 = u_half + 0.5 * e3 * s3 * grad1
         joint1 = logp1 - 0.5 * torch.sum(u1 * u1, dim=-1)
         delta = joint1 - joint0
         # a finite endpoint with a non-finite gradient is rejected: the
@@ -130,20 +144,24 @@ def _step(vag_fn, carry, u_i, xi, un, num_folds, step_size_scale, max_step_size)
         en_f.append(-torch.where(take, joint1, joint0))
         eps_f.append(eps)
         gam_f.append(gamma)
-    carry = dict(q=torch.cat(q), logp=torch.cat(logp), grad=torch.cat(grad),
-                 u=torch.cat(u))
-    out = dict(q=carry["q"], logp=carry["logp"], accept_prob=torch.cat(acc_f),
-               diverging=torch.cat(div_f), energy=torch.cat(en_f))
-    return carry, out, torch.stack(eps_f), torch.stack(gam_f)
+
+    def chains(ts):
+        t = torch.stack(ts, dim=1)
+        return t.reshape((c,) + tuple(t.shape[3:]))
+
+    carry = dict(q=chains(q), logp=chains(logp), grad=chains(grad), u=chains(u))
+    out = dict(q=carry["q"], logp=carry["logp"], accept_prob=chains(acc_f),
+               diverging=chains(div_f), energy=chains(en_f))
+    return carry, out, torch.stack(eps_f, dim=1), torch.stack(gam_f, dim=1)
 
 
-def _run(vag_fn, carry, kernel, num_folds, step_size_scale, max_step_size, rand,
-         on_iter=None, first=0, last=None):
+def _run(vag_fold, carry, kernel, num_folds, step_size_scale, max_step_size, rand,
+         groups=1, on_iter=None, first=0, last=None):
     """Iterations ``first`` .. ``last`` (default: to the end) of burn-in
-    and sampling from ``carry``; ``rand(i) -> (xi, un)``; ``on_iter(i,
-    carry, eps, gamma)`` sees the carry and the folds' tuning after each
-    iteration. Returns (carry, outs (C, samples run, ...), last eps, last
-    gamma)."""
+    and sampling of ``groups`` ensembles from ``carry``; ``rand(i) ->
+    (xi, un)``; ``on_iter(i, carry, eps, gamma)`` sees the carry and the
+    folds' tuning after each iteration. Returns (carry, outs (C, samples
+    run, ...), last eps (G, K), last gamma (G, K))."""
     total = kernel.num_warmup + kernel.num_samples
     last = total if last is None else last
     c, d = carry["q"].shape
@@ -158,8 +176,8 @@ def _run(vag_fn, carry, kernel, num_folds, step_size_scale, max_step_size, rand,
     k = 0
     for i in range(first, last):
         xi, un = rand(i)
-        carry, out, eps, gamma = _step(vag_fn, carry, float(kernel.jitter[i]), xi, un,
-                                       num_folds, step_size_scale, max_step_size)
+        carry, out, eps, gamma = _step(vag_fold, carry, float(kernel.jitter[i]), xi, un,
+                                       num_folds, step_size_scale, max_step_size, groups)
         if i >= kernel.num_warmup:
             for name in outs:
                 outs[name][:, k] = out[name]
@@ -167,6 +185,39 @@ def _run(vag_fn, carry, kernel, num_folds, step_size_scale, max_step_size, rand,
         if on_iter is not None:
             on_iter(i, carry, eps, gamma)
     return carry, outs, eps, gamma
+
+
+def run_groups(model, ddata_chains, ddata_folds, q_inits, groups, num_folds,
+               num_warmup, num_samples, seed, step_size_scale=1.0, max_step_size=None,
+               rand=None, syncs=None, kernel=None):
+    """MEADS on ``groups`` independent ensembles of
+    ``q_inits.shape[0] / groups`` chains each, as one batch from
+    ``q_inits`` (G * M, d). ``ddata_chains`` and ``ddata_folds`` (a
+    ``DeviceData`` or None) carry the data with a leading axis of G * M
+    and of G * M / num_folds rows (or 1). Draws come from generators
+    seeded from ``seed`` as in ``sample_meads``, or from ``rand(i) ->
+    (xi, un)``. Returns (outs, final carry, eps (G, K), gamma (G, K))."""
+    from exmc_tpu_torch.nuts.sampler import _find_valid_init
+
+    c, d = q_inits.shape
+    dt, dev = default_dtype(), model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q0, logp0, grad0 = _find_valid_init(
+        lambda q: model.value_and_grad(q, ddata_chains), q_inits, gen, syncs=syncs)
+    mom_gen = torch.Generator(device=dev)
+    mom_gen.manual_seed(seed + MOMENTUM_SEED_OFFSET)
+    u0 = torch.randn(c, d, generator=mom_gen, dtype=dt, device=dev)
+    carry = dict(q=q0, logp=logp0, grad=grad0, u=u0)
+    if rand is None:
+        def rand(i):
+            return (torch.randn(c, d, generator=gen, dtype=dt, device=dev),
+                    torch.rand(c, generator=gen, dtype=dt, device=dev))
+    kernel = kernel or _Kernel(num_warmup, num_samples)
+    carry, outs, eps, gamma = _run(lambda q: model.value_and_grad(q, ddata_folds), carry,
+                                   kernel, num_folds, float(step_size_scale),
+                                   max_step_size, rand, groups)
+    return outs, carry, eps, gamma
 
 
 _KERNEL_CACHE = KernelCache()
@@ -226,12 +277,7 @@ def sample_meads(ir, *, num_chains=128, num_folds=4, num_warmup=500,
     ``init``: "pathfinder" (default: the ensemble drawn from a Pathfinder
     fit), "random" (overdispersed per-chain draws) or a dict of named
     values (every chain there, with a 0.01 jitter)."""
-    from exmc_tpu_torch.nuts.sampler import (
-        CHAIN_SEED_STRIDE,
-        INIT_SEED_OFFSET,
-        _find_valid_init,
-        _init_position,
-    )
+    from exmc_tpu_torch.nuts.sampler import CHAIN_SEED_STRIDE, INIT_SEED_OFFSET, _init_position
 
     if num_chains % num_folds != 0:
         raise ValueError(f"num_chains={num_chains} not divisible by folds={num_folds}")
@@ -252,13 +298,7 @@ def sample_meads(ir, *, num_chains=128, num_folds=4, num_warmup=500,
         return {}, {"note": "model has no free parameters"}
     dt, dev = default_dtype(), model.device
     ddata = run_data(ir, model, data)
-
-    def vag_fn(q):
-        return model.value_and_grad(q, ddata)
-
     syncs = HostSyncs()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     init_gen = torch.Generator(device=dev)
     init_gen.manual_seed(seed * CHAIN_SEED_STRIDE + INIT_SEED_OFFSET)
     q_inits = None
@@ -270,19 +310,10 @@ def sample_meads(ir, *, num_chains=128, num_folds=4, num_warmup=500,
         q_inits = _pathfinder_ensemble(model, ddata, num_chains, seed, init_gen)
     if q_inits is None:  # overdispersed per-chain draws
         q_inits = _init_position(init_gen, (num_chains, d), dt, dev)
-    q0, logp0, grad0 = _find_valid_init(vag_fn, q_inits, gen, syncs=syncs)
-    mom_gen = torch.Generator(device=dev)
-    mom_gen.manual_seed(seed + MOMENTUM_SEED_OFFSET)
-    u0 = torch.randn(num_chains, d, generator=mom_gen, dtype=dt, device=dev)
-    carry = dict(q=q0, logp=logp0, grad=grad0, u=u0)
-
-    def rand(i):
-        return (torch.randn(num_chains, d, generator=gen, dtype=dt, device=dev),
-                torch.rand(num_chains, generator=gen, dtype=dt, device=dev))
-
-    carry, outs, eps, gamma = _run(vag_fn, carry, kernel, num_folds,
-                                   float(step_size_scale), max_step_size, rand)
-    extra = {"step_size": eps.cpu().numpy() if eps is not None else None,
-             "damping": gamma.cpu().numpy() if gamma is not None else None,
+    outs, _, eps, gamma = run_groups(model, ddata, ddata, q_inits, 1, num_folds,
+                                     num_warmup, num_samples, seed, step_size_scale,
+                                     max_step_size, syncs=syncs, kernel=kernel)
+    extra = {"step_size": eps[0].cpu().numpy() if eps is not None else None,
+             "damping": gamma[0].cpu().numpy() if gamma is not None else None,
              "host_syncs": syncs.count}
     return postprocess_ensemble(outs, model, ddata, return_unconstrained, extra)

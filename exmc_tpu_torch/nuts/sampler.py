@@ -915,7 +915,7 @@ def sample_chains(ir, num_chains=4, **kwargs):
 
 def sample_stream(ir, callback, *, num_chains=1, chunk_size=100, seed=0,
                   init=None, data=None, ncp=True, device=None, every=None,
-                  **opts):
+                  mechanism="chunked", **opts):
     """Streaming sampling. Returns the full (trace, stats) like
     ``sample``.
 
@@ -925,17 +925,40 @@ def sample_stream(ir, callback, *, num_chains=1, chunk_size=100, seed=0,
       post-warmup draws.
     * ``every=k``: ``callback(draw_index, constrained_point, stats)`` for
       every k-th post-warmup draw, with the (num_chains, ...) batch of
-      that draw, called from the pipeline loop as the draw is made (the
-      JAX package's io_callback); it costs one copy to the host per
-      call and no other sync."""
+      that draw. ``mechanism`` says when it is called:
+
+      - ``"chunked"`` (default): ``run_chunked`` in chunks of
+        ``max(k, 25)`` iterations; after each chunk, the callback sees
+        each of its k-th draws;
+      - ``"io_callback"``: from the pipeline loop, as each k-th draw is
+        made (the JAX package's ``io_callback``); it costs one copy to
+        the host per call and no other sync.
+
+      Both give the callback the same draws, and the run's result is
+      the same."""
     if data is None and not isinstance(ir, CompiledModel):
         data = ir.data
+    if every is None:
+        sampler = _make_sampler(ir, ncp=ncp, device=device, **opts)
+        return sampler.run_chunked(num_chains=num_chains, chunk_iters=chunk_size,
+                                   seed=seed, init=init, data=data,
+                                   callback=callback)
+    if not (isinstance(every, int) and every >= 1):
+        raise ValueError(f"every must be a positive int, got {every!r}")
+    if mechanism not in ("chunked", "io_callback"):
+        raise ValueError(f"mechanism must be 'chunked' or 'io_callback', "
+                         f"got {mechanism!r}")
     sampler = _make_sampler(ir, ncp=ncp, device=device, **opts)
-    if every is not None:
-        if not (isinstance(every, int) and every >= 1):
-            raise ValueError(f"every must be a positive int, got {every!r}")
+    if mechanism == "io_callback":
         return sampler.run(num_chains=num_chains, seed=seed, init=init,
                            data=data, stream_cb=callback, stream_every=every)
-    return sampler.run_chunked(num_chains=num_chains, chunk_iters=chunk_size,
-                               seed=seed, init=init, data=data,
-                               callback=callback)
+
+    def chunk_cb(start, trace_chunk, stats_chunk):
+        n = next(iter(trace_chunk.values())).shape[1]
+        for j in range(n):
+            if (start + j + 1) % every == 0:
+                callback(start + j, {k: v[:, j] for k, v in trace_chunk.items()},
+                         {k: v[:, j] for k, v in stats_chunk.items()})
+
+    return sampler.run_chunked(num_chains=num_chains, chunk_iters=max(every, 25),
+                               seed=seed, init=init, data=data, callback=chunk_cb)

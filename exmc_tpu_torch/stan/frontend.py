@@ -57,7 +57,7 @@ import torch
 
 from exmc_tpu_torch import dists
 from exmc_tpu_torch.compiler import _align_dist
-from exmc_tpu_torch.ir import Builder
+from exmc_tpu_torch.ir import Builder, _batched
 from exmc_tpu_torch.math import event_sum
 from exmc_tpu_torch.stan.lexer import StanSyntaxError
 from exmc_tpu_torch.stan.parser import parse
@@ -461,7 +461,7 @@ def compile(code: str, data=None):
                 v, params = _align_dist(_dist, v, dict(zip(_pn, ps)))
                 return event_sum(_dist.logpdf(v, params))
 
-            ir = Builder.det(ir, nid, lpdf_fn, [value] + arg_refs)
+            ir = Builder.det(ir, nid, _batched(lpdf_fn), [value] + arg_refs)
             return ir, nid
         raise StanSyntaxError(f"bad expression {expr!r}", line=line)
 
@@ -531,7 +531,7 @@ def compile(code: str, data=None):
             return lp + jac
 
         nid = f"__{target}_afflp"
-        ir = Builder.det(ir, nid + "_val", aff_lp,
+        ir = Builder.det(ir, nid + "_val", _batched(aff_lp),
                          [target, mult] + [params[p] for p in param_names])
         fac = dists.Custom(
             logpdf_fn=lambda x, prm: prm["v"], support="real",
