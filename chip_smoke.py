@@ -63,9 +63,21 @@ Phases, each printing JSON lines:
                  predictive checks and WAIC/LOO/compare on a 256-chain
                  eight-schools trace, the card against the CPU; a
                  per-point det callable compiled on the card, graphed;
+               * families: the model families
+                 (exmc_tpu_torch/benchmarks/families.py), one line per
+                 task at the examples' full widths (their NUTS runs cut
+                 to half their iterations): sv_inla at T = 5000 in f64
+                 against LONGT.json's row; the D-T39 logZ transect in
+                 f32 and f64 with the marginal's value-and-grad times;
+                 example 45 (INLA, then NUTS on the marginal in f64);
+                 example 47 (AR(1) marginal, Kalman smoother); example 42
+                 (HMM, smoothing, Viterbi); example 41 and the GLM tests'
+                 four fits; example 13 (particle filter, PMMH) and SMC^2;
+                 the exact-invariance battery on the card's tree (8192
+                 chains);
                then one summary line each for the suite, the golds, the
                entry checks, the engines, the approximate engines, the
-               post tasks and the pool;
+               post tasks, the families and the pool;
   6. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
@@ -84,7 +96,7 @@ import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
-from exmc_tpu_torch.benchmarks import engines, entry, post, suite, validation
+from exmc_tpu_torch.benchmarks import engines, entry, families, post, suite, validation
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -115,10 +127,19 @@ POOL_WORKERS = 4
 # PR 3's card runs (the suite's at 150+150, the golds' under the card
 # recipe) at ~2.3 ms a sync, the entry tasks' from their runs' sizes,
 # the engine tasks' from their runs alone on the card, the post tasks'
-# from their first run in the pool.
+# from their first run in the pool, the families tasks' from their first
+# run in the pool scaled to their cut recipes (PERF.md, Findings).
 # Only the order matters: the long tasks never start last.
 POOL_COST_S = {
     ("suite", "eight_schools"): 250.0,
+    ("families", "families:gp_glm"): 145.0,
+    ("families", "families:sv_marginal"): 120.0,
+    ("families", "families:ar_kalman"): 55.0,
+    ("families", "families:particle"): 32.0,
+    ("families", "families:hmm"): 18.0,
+    ("families", "families:smoothness"): 15.0,
+    ("families", "families:inla_t5000"): 10.0,
+    ("families", "tree:invariance"): 2.0,
     ("post", "reliability"): 108.0,
     ("post", "flows"): 95.0,
     ("post", "sbc:normal_loc_scale"): 90.0,
@@ -162,6 +183,7 @@ N_GOLDS = 51
 N_ENGINE_ROWS = 9        # three engines on three models
 N_VI_ROWS = 11           # the CLI, 3 fit_map, laplace, 2 ADVI, 3 Pathfinder, the init
 N_POST_ROWS = len(post.TASKS)
+N_FAMILIES_ROWS = len(families.TASKS)
 
 
 def emit(obj):
@@ -303,13 +325,14 @@ def pool_tasks():
              + [("gold", validation.gold_name(m)) for m in validation.all_gold_standards()]
              + [("entry", t) for t in entry.TASKS]
              + [("engines", t) for t in engines.TASKS]
-             + [("post", t) for t in post.TASKS])
+             + [("post", t) for t in post.TASKS]
+             + [("families", t) for t in families.TASKS])
     return sorted(tasks, key=lambda t: -POOL_COST_S.get(t, 0.0))
 
 
 PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry", "engines": "engines",
-            "post": "post"}
-POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post")
+            "post": "post", "families": "families"}
+POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post", "families")
 
 
 def run_task(task):
@@ -344,9 +367,10 @@ def _run_task(kind, name):
             line["fused_leapfrog_gaussian_launches"] = (
                 fused_leapfrog_gaussian.launches if i == 0 else 0)
         return lines
-    if kind == "post":
+    if kind in ("post", "families"):
         fused_leapfrog_gaussian.launches = 0
-        lines = [{"task": name, **res} for res in post.run_task(name, "cuda")]
+        module = post if kind == "post" else families
+        lines = [{"task": name, **res} for res in module.run_task(name, "cuda")]
         lines[0]["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
         return lines
     return [{"phase": "entry", **res} for res in entry.run_check(name, "cuda")]
@@ -411,7 +435,7 @@ def phase_pool(workers=POOL_WORKERS):
           "n": n_entry,
           "fused_leapfrog_gaussian_launches": launches["entry"]})
 
-    for p in ("engines", "vi", "post"):
+    for p in ("engines", "vi", "post", "families"):
         for res in by_phase[p]:
             if not res["ok"]:
                 name = res.get("check") or f"{res['model']}:{res['engine']}"
@@ -436,6 +460,13 @@ def phase_pool(workers=POOL_WORKERS):
                                          "peak_mb", "jax_reference_tpu", "ok")}
                   for r in rows if r["check"].startswith("sbc:")],
           "fused_leapfrog_gaussian_launches": launches["post"]})
+    rows = by_phase["families"]
+    n_fam = len(rows) + n_errors["families"]
+    emit({"phase": "families_summary", "n_pass": n_fam - len(failures["families"]),
+          "n": n_fam,
+          "tasks": [{k: r.get(k) for k in ("check", "wall_s", "host_syncs", "peak_mb", "ok")}
+                    for r in rows],
+          "fused_leapfrog_gaussian_launches": launches["families"]})
     emit({"phase": "pool_summary", "seconds": seconds, "workers": workers,
           "tasks": len(tasks)})
 
@@ -446,9 +477,10 @@ def phase_pool(workers=POOL_WORKERS):
     for p, fs in failures.items():
         if fs:
             fail(f"{p}: " + " | ".join(fs))
-    if n_eng != N_ENGINE_ROWS or n_vi != N_VI_ROWS or n_post != N_POST_ROWS:
-        fail(f"engines/vi/post: {n_eng}, {n_vi} and {n_post} results, expected "
-             f"{N_ENGINE_ROWS}, {N_VI_ROWS} and {N_POST_ROWS}")
+    if (n_eng != N_ENGINE_ROWS or n_vi != N_VI_ROWS or n_post != N_POST_ROWS
+            or n_fam != N_FAMILIES_ROWS):
+        fail(f"engines/vi/post/families: {n_eng}, {n_vi}, {n_post} and {n_fam} results, "
+             f"expected {N_ENGINE_ROWS}, {N_VI_ROWS}, {N_POST_ROWS} and {N_FAMILIES_ROWS}")
     return launches
 
 
@@ -500,6 +532,7 @@ def main(argv=None):
         "engines_path_launches": pool_launches["engines"],
         "vi_path_launches": pool_launches["vi"],
         "post_path_launches": pool_launches["post"],
+        "families_path_launches": pool_launches["families"],
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

@@ -4,8 +4,7 @@ The JAX package ``exmc_tpu`` is the reference; this package mirrors its
 module names and is held against it by ``tests/test_torch_*.py``. It
 imports torch, numpy, scipy and the standard library only. Entry points
 run on ``device="cuda"`` unless the caller asks for ``"cpu"``.
-``__all__`` is the JAX package's less the model families not ported yet
-(``gp``, ``hmm``, ``glm``).
+``__all__`` is the JAX package's and the subpackage ``particle``.
 """
 
 from exmc_tpu_torch import dists
@@ -28,6 +27,10 @@ from exmc_tpu_torch.pathfinder import pathfinder_fit
 from exmc_tpu_torch.optimize import fit_map, laplace
 from exmc_tpu_torch.psir import psir
 from exmc_tpu_torch import diagnostics
+from exmc_tpu_torch import gp
+from exmc_tpu_torch import hmm
+from exmc_tpu_torch import glm
+from exmc_tpu_torch import particle
 from exmc_tpu_torch import log_prob
 from exmc_tpu_torch import model_comparison
 from exmc_tpu_torch import predictive
@@ -60,6 +63,10 @@ __all__ = [
     "psir",
     "dists",
     "diagnostics",
+    "gp",
+    "hmm",
+    "glm",
+    "particle",
     "log_prob",
     "model_comparison",
     "predictive",

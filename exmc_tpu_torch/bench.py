@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch import Builder, dists
-from exmc_tpu_torch.diagnostics import ess, nested_rhat
+from exmc_tpu_torch.diagnostics import _ess as ess, _nested_rhat as nested_rhat
 from exmc_tpu_torch.nuts.sampler import _make_sampler
 
 Y = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]

@@ -61,7 +61,7 @@ from exmc_tpu_torch.benchmarks.validation import check_against_reference
 from exmc_tpu_torch.chees import sample_chees
 from exmc_tpu_torch.compiler import compile_logp
 from exmc_tpu_torch.config import prepare_device
-from exmc_tpu_torch.diagnostics import ess, rhat
+from exmc_tpu_torch.diagnostics import _ess as ess, _rhat as rhat
 from exmc_tpu_torch.meads import sample_meads
 from exmc_tpu_torch.nuts.sampler import _make_sampler
 from exmc_tpu_torch.optimize import fit_map, laplace

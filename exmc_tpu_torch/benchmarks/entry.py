@@ -50,7 +50,7 @@ from exmc_tpu_torch.benchmarks.validation import (
 )
 from exmc_tpu_torch.compiler import compile_logp
 from exmc_tpu_torch.config import prepare_device
-from exmc_tpu_torch.diagnostics import rhat
+from exmc_tpu_torch.diagnostics import _rhat as rhat
 from exmc_tpu_torch.nuts.interweave import eligible_groups
 from exmc_tpu_torch.nuts.sampler import (
     _SAMPLER_CACHE,

@@ -74,7 +74,7 @@ from exmc_tpu_torch.advi import _adam, advi_fit
 from exmc_tpu_torch.benchmarks import reliability
 from exmc_tpu_torch.compiler import GraphedValueAndGrad, compile_logp
 from exmc_tpu_torch.config import prepare_device
-from exmc_tpu_torch.diagnostics import ess, rhat
+from exmc_tpu_torch.diagnostics import _ess as ess, _rhat as rhat
 from exmc_tpu_torch.dsl import Model
 from exmc_tpu_torch.flows import flow_fit, sample_neutra
 from exmc_tpu_torch.model_comparison import (

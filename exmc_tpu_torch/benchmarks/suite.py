@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch import Builder, dists
-from exmc_tpu_torch.diagnostics import ess, rhat
+from exmc_tpu_torch.diagnostics import _ess as ess, _rhat as rhat
 from exmc_tpu_torch.nuts.interweave import eligible_groups
 from exmc_tpu_torch.nuts.sampler import _make_sampler
 from exmc_tpu_torch.ops import fused_leapfrog_gaussian

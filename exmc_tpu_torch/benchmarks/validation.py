@@ -27,7 +27,7 @@ import torch
 
 from exmc_tpu_torch import Builder, dists
 from exmc_tpu_torch.compiler import compile_logp
-from exmc_tpu_torch.diagnostics import rhat
+from exmc_tpu_torch.diagnostics import _rhat as rhat
 from exmc_tpu_torch.nuts.sampler import _make_sampler
 from exmc_tpu_torch.ops import fused_leapfrog_gaussian
 

@@ -48,7 +48,7 @@ import torch
 from exmc_tpu_torch import math as xm
 from exmc_tpu_torch import rewrite
 from exmc_tpu_torch import transforms as tf
-from exmc_tpu_torch.config import default_dtype, prepare_device
+from exmc_tpu_torch.config import default_dtype, np_dtype, prepare_device
 from exmc_tpu_torch.dists.base import get as get_dist
 from exmc_tpu_torch.dists.composite import CENSORED
 from exmc_tpu_torch.ir import IR, _is_batched
@@ -276,7 +276,11 @@ def _align_dist(dist, value, params):
     each keeping the event axes the distribution declares for it
     (``value_event_dims``, ``param_event_dims``); a Mixture's component
     parameters use their component's declaration. ``value`` may be a
-    dict (interval censoring)."""
+    dict (interval censoring). A distribution with ``align = False``
+    (``Custom(..., align=False)``) gets them as they are, each with its
+    chain axis (1 for constants) or 0-d."""
+    if not dist.align:
+        return value, params
     leaves = []
 
     def leaf(t, k):
@@ -338,7 +342,7 @@ def _const(value, device):
     an array (a chain axis of 1)."""
     arr = np.asarray(value)
     dtype = torch.bool if arr.dtype == np.bool_ else default_dtype()
-    t = torch.as_tensor(arr.astype(np.bool_ if dtype == torch.bool else np.float32),
+    t = torch.as_tensor(arr.astype(np.bool_ if dtype == torch.bool else np_dtype()),
                         device=device)
     return t if t.ndim == 0 else t.unsqueeze(0)
 
@@ -432,7 +436,7 @@ class CompiledModel:
         """``unconstrain`` of N points at once: {name: (N, *shape)} ->
         (N, d)."""
         dev = self.device
-        xmap = {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+        xmap = {k: torch.as_tensor(np.array(v, np_dtype()), device=dev)
                 for k, v in xmap.items()}
         zmap = dict(xmap)
         val = None

@@ -7,6 +7,12 @@ at their average rank), split ``rhat``, ``nested_rhat``, ``ebfmi``,
 Inputs are (chains, draws) arrays or tensors; numpy input is computed on
 the CPU in its own dtype. Between-chain variances are centered two-pass
 (``torch.var``).
+
+The public statistics return numpy arrays (0-d for a scalar), as
+``np.asarray`` of the JAX package's results would be, so numpy's
+reductions and ``float`` work on them; ``summary`` returns Python
+floats. The package's own callers use the private tensor versions
+(``_ess``, ``_rhat``, ...), which leave a result on its device.
 """
 
 import math
@@ -51,7 +57,7 @@ def _geyer_tau(pair, n):
     return torch.clamp_min(tau, 1.0 / math.log10(float(n)))
 
 
-def ess(x):
+def _ess(x):
     """Effective sample size, Geyer initial positive/monotone sequence,
     pooled over chains with var_plus = W*(n-1)/n + B/n (Vehtari et al.
     2021). x: (chains, draws) or (draws,)."""
@@ -86,22 +92,22 @@ def _rank_normalize(x):
     return z.reshape(x.shape)
 
 
-def ess_bulk(x):
+def _ess_bulk(x):
     """Bulk ESS: rank-normalized split-chain ESS."""
-    return ess(_split_chains(_rank_normalize(_as_2d(x))))
+    return _ess(_split_chains(_rank_normalize(_as_2d(x))))
 
 
-def ess_tail(x, prob=0.05):
+def _ess_tail(x, prob=0.05):
     """Tail ESS: the smaller ESS of the prob and 1 - prob quantile
     indicators."""
     x = _as_2d(x)
-    lo, hi = quantile(x, [prob, 1.0 - prob])
-    e_lo = ess(_split_chains(_rank_normalize((x <= lo).to(x.dtype))))
-    e_hi = ess(_split_chains(_rank_normalize((x <= hi).to(x.dtype))))
+    lo, hi = _quantile(x, [prob, 1.0 - prob])
+    e_lo = _ess(_split_chains(_rank_normalize((x <= lo).to(x.dtype))))
+    e_hi = _ess(_split_chains(_rank_normalize((x <= hi).to(x.dtype))))
     return torch.minimum(e_lo, e_hi)
 
 
-def rhat(x):
+def _rhat(x):
     """Split-chain R-hat. x: (chains, draws)."""
     s = _split_chains(_as_2d(x))
     m, n = s.shape
@@ -111,12 +117,12 @@ def rhat(x):
     return torch.sqrt(var_plus / torch.clamp_min(w, 1e-30))
 
 
-def rhat_bulk(x):
+def _rhat_bulk(x):
     """Rank-normalized split R-hat."""
-    return rhat(_rank_normalize(_as_2d(x)))
+    return _rhat(_rank_normalize(_as_2d(x)))
 
 
-def nested_rhat(x, num_superchains):
+def _nested_rhat(x, num_superchains):
     """Nested R-hat (Margossian et al. 2022) for many short chains.
 
     ``x``: (chains, draws); chains are grouped CONSECUTIVELY into
@@ -147,7 +153,7 @@ def nested_rhat(x, num_superchains):
     return torch.sqrt(1.0 + b / torch.clamp_min(w, 1e-30))
 
 
-def ebfmi(energy):
+def _ebfmi(energy):
     """Energy Bayesian fraction of missing information per chain
     (Betancourt 2016): mean(diff(E)^2) / var(E). ``energy``: (chains,
     draws), e.g. ``stats["energy"]``; returns (chains,)."""
@@ -156,14 +162,14 @@ def ebfmi(energy):
     return (de * de).mean(dim=1) / _var(e, 1)
 
 
-def autocorrelation(x, max_lag=None):
+def _autocorrelation(x, max_lag=None):
     """Normalized autocorrelation per chain (FFT)."""
     acov = autocovariance(torch.as_tensor(x))
     acf = acov / torch.clamp_min(acov[..., :1], 1e-30)
     return acf if max_lag is None else acf[..., : max_lag + 1]
 
 
-def quantile(x, qs):
+def _quantile(x, qs):
     """Quantiles of all draws by sorted linear interpolation (numpy's and
     JAX's default "linear" method)."""
     flat = torch.sort(torch.as_tensor(x).reshape(-1)).values
@@ -187,11 +193,35 @@ def summary(trace, var_names=None):
         for i in range(flat_ev.shape[-1]):
             x = flat_ev[:, :, i]
             key = name if flat_ev.shape[-1] == 1 else f"{name}[{i}]"
-            qs = quantile(x, [0.05, 0.25, 0.5, 0.75, 0.95])
+            qs = _quantile(x, [0.05, 0.25, 0.5, 0.75, 0.95])
             row = {"mean": float(x.mean()), "std": float(torch.std(x, correction=1))}
             row.update({f"q{p}": float(v) for p, v in zip((5, 25, 50, 75, 95), qs)})
-            row.update(ess=float(ess(x)), ess_bulk=float(ess_bulk(x)),
-                       ess_tail=float(ess_tail(x)), rhat=float(rhat(x)))
+            row.update(ess=float(_ess(x)), ess_bulk=float(_ess_bulk(x)),
+                       ess_tail=float(_ess_tail(x)), rhat=float(_rhat(x)))
             row["mcse_mean"] = row["std"] / max(row["ess"], 1.0) ** 0.5
             out[key] = row
     return out
+
+
+def _numpy(fn):
+    """The public form of a tensor statistic: the same computation, its
+    result as a numpy array on the host."""
+
+    def public(*args, **kwargs):
+        return fn(*args, **kwargs).detach().cpu().numpy()
+
+    public.__name__ = fn.__name__[1:]
+    public.__qualname__ = public.__name__
+    public.__doc__ = fn.__doc__
+    return public
+
+
+ess = _numpy(_ess)
+ess_bulk = _numpy(_ess_bulk)
+ess_tail = _numpy(_ess_tail)
+rhat = _numpy(_rhat)
+rhat_bulk = _numpy(_rhat_bulk)
+nested_rhat = _numpy(_nested_rhat)
+ebfmi = _numpy(_ebfmi)
+autocorrelation = _numpy(_autocorrelation)
+quantile = _numpy(_quantile)

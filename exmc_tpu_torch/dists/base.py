@@ -21,6 +21,7 @@ class Distribution:
     name = "distribution"
     value_event_dims = 0
     param_event_dims = {}
+    align = True
 
     def logpdf(self, value, params):
         raise NotImplementedError

@@ -84,19 +84,25 @@ class Custom(Distribution):
     """User-defined density, given as a torch callable::
 
         Custom(logpdf_fn=lambda x, params, data=None: ...,
-               support="real", transform=None, sample_fn=None)
+               support="real", transform=None, sample_fn=None,
+               align=True)
 
     ``logpdf_fn`` receives batched torch tensors with the leading chain
     axis (see ``base.py``) and returns the elementwise log-density; it
     may take a ``data`` keyword to receive the data registered with
-    ``Builder.data``. ``sample_fn(params, shape, generator)`` is
+    ``Builder.data``. ``align=False`` passes the value and parameters
+    without the batch-axis alignment, each as it is with its chain axis
+    (1 for constants) or 0-d, for a density that reads whole arrays
+    (``hmm.hmm_dist``). ``sample_fn(params, shape, generator)`` is
     optional. A JAX callable cannot be carried over from the JAX
     package: write the density in torch."""
 
     name = "custom"
 
-    def __init__(self, logpdf_fn, support="real", transform=None, sample_fn=None):
+    def __init__(self, logpdf_fn, support="real", transform=None, sample_fn=None,
+                 align=True):
         self.logpdf_fn = logpdf_fn
+        self.align = align
         self._support = support
         self._transform = transform
         self.sample_fn = sample_fn

@@ -31,7 +31,7 @@ class MvNormal(Distribution):
     def prepare_params(self, params):
         if "chol" in params or isinstance(params.get("cov"), str):
             return params
-        chol = torch.linalg.cholesky(params["cov"])
+        chol = xm.cholesky_or_nan(params["cov"])
         return {"mu": params["mu"], "chol": chol,
                 "log_det_cov": _log_det_from_chol(chol)}
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch import transforms as tf
-from exmc_tpu_torch.config import prepare_device
+from exmc_tpu_torch.config import np_dtype, prepare_device
 from exmc_tpu_torch.dists.base import get as get_dist
 from exmc_tpu_torch.ir import IR, Node
 from exmc_tpu_torch.nuts.leapfrog import make_metric
@@ -102,8 +102,8 @@ def tuning_from_numpy(step_size, inv_mass, device=None, dense=None):
     diagonal, or dense as (C, d, d), or one (d, d) matrix with
     ``dense=True`` (shared by every chain)."""
     dev = prepare_device(device)
-    eps = torch.as_tensor(np.asarray(step_size, np.float32), device=dev)
-    inv = torch.as_tensor(np.asarray(inv_mass, np.float32), device=dev)
+    eps = torch.as_tensor(np.asarray(step_size, np_dtype()), device=dev)
+    inv = torch.as_tensor(np.asarray(inv_mass, np_dtype()), device=dev)
     if dense is None:
         dense = inv.ndim == 3
     if dense and inv.ndim == 2:
@@ -193,3 +193,16 @@ def flow_to_numpy(flow):
     return {"mu": arr(flow.mu), "log_s": arr(flow.log_s),
             "layers": [{name: arr(getattr(flow, name)[k]) for name in ("w1", "b1", "w2", "b2")}
                        for k in range(flow.num_layers)]}
+
+
+def ssm_from_numpy(ssm, device=None):
+    """A linear-Gaussian state-space model of the JAX package
+    (``exmc_tpu.kalman.LGSSM``, or any object with its six fields
+    F, Q, h, r, mu0, P0) as the port's ``kalman.LGSSM`` of tensors in
+    ``default_dtype()`` on ``device``."""
+    from exmc_tpu_torch.config import default_dtype
+    from exmc_tpu_torch.kalman import LGSSM
+
+    dev = prepare_device(device)
+    return LGSSM(*(torch.as_tensor(np.asarray(getattr(ssm, f)), dtype=default_dtype(),
+                                   device=dev) for f in LGSSM._fields))

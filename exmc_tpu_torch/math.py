@@ -91,3 +91,32 @@ def softplus(x):
 def inv_softplus(y):
     """Inverse of softplus: log(expm1(y)) = y + log(1 - exp(-y))."""
     return y + log1mexp(-y)
+
+
+def const_like(array):
+    """A numpy array that a det callable closes over, as a tensor on the
+    device and in the dtype of the point it is applied to: ``get(like)``
+    makes the copy once per (dtype, device), at the first (eager) call,
+    never inside a CUDA graph capture. The copy is made outside any
+    ``torch.func`` transform the call runs under, so the cached tensor
+    is a plain one that later calls can use."""
+    cache = {}
+
+    def get(like):
+        key = (like.dtype, like.device)
+        if key not in cache:
+            with torch._C._DisableFuncTorch():
+                cache[key] = torch.as_tensor(array, dtype=like.dtype, device=like.device)
+        return cache[key]
+
+    return get
+
+
+def cholesky_or_nan(a):
+    """Lower Cholesky factor of each (..., n, n) matrix, NaN where the
+    matrix is not positive definite: what ``jnp.linalg.cholesky``
+    returns, where ``torch.linalg.cholesky`` raises. A sampled
+    covariance that is not positive definite then makes a NaN
+    log-density (a divergent leaf), not an error."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol, torch.full_like(chol, math.nan))

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from exmc_tpu_torch.config import default_dtype
 
 class WelfordState(NamedTuple):
     n: torch.Tensor       # (C,) counts, or () after a merge
@@ -18,7 +19,8 @@ class WelfordState(NamedTuple):
     m2: torch.Tensor      # (C, d) or (d,); dense (C, d, d) or (d, d)
 
 
-def welford_init(c, d, dtype=torch.float32, device=None, dense=False):
+def welford_init(c, d, dtype=None, device=None, dense=False):
+    dtype = default_dtype() if dtype is None else dtype
     return WelfordState(
         n=torch.zeros(c, dtype=dtype, device=device),
         mean=torch.zeros(c, d, dtype=dtype, device=device),

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from exmc_tpu_torch.compiler import CompiledModel, compile_logp, constrainer
-from exmc_tpu_torch.config import default_dtype, prepare_device
+from exmc_tpu_torch.config import default_dtype, np_dtype, prepare_device
 from exmc_tpu_torch.dists.base import Distribution
 from exmc_tpu_torch.dists.composite import Custom
 from exmc_tpu_torch.nuts.interweave import (
@@ -405,7 +405,7 @@ class NUTSSampler:
         self._freeze_mask = None
         self._cond_metric_fn = None
         if self.gibbs_scales:
-            mask = np.ones(self.model.size, np.float32)
+            mask = np.ones(self.model.size, np_dtype())
             frozen = set()
             for g in eligible_groups(self.model):
                 kinds = {z[2] for z in g["zs"]}
@@ -836,14 +836,15 @@ _SAMPLER_OPT_KEYS = (
 
 def _make_sampler(ir_or_model, ncp=True, device=None, **opts) -> NUTSSampler:
     """A sampler over a compiled model, or over an IR through the LRU
-    cache keyed on (signature, ncp, options, device)."""
+    cache keyed on (signature, ncp, options, device, dtype)."""
     unknown = set(opts) - set(_SAMPLER_OPT_KEYS)
     if unknown:
         raise TypeError(f"unknown sampler options: {sorted(unknown)}")
     if isinstance(ir_or_model, CompiledModel):
         return NUTSSampler(model=ir_or_model, **opts)
     dev = prepare_device(device)
-    key = (ir_signature(ir_or_model), bool(ncp), tuple(sorted(opts.items())), str(dev))
+    key = (ir_signature(ir_or_model), bool(ncp), tuple(sorted(opts.items())), str(dev),
+           str(default_dtype()))
     hit = _SAMPLER_CACHE.get(key)
     if hit is not None:
         _SAMPLER_CACHE.move_to_end(key)

@@ -50,21 +50,21 @@ def test_rank_diagnostics_match_jax(fn, case, kw):
 @pytest.mark.parametrize("case,kw", CASES, ids=[c[0] for c in CASES])
 def test_ebfmi_autocorrelation_quantile_match_jax(case, kw):
     x = _chains(**kw)
-    np.testing.assert_allclose(td.ebfmi(x).numpy(), np.asarray(jd.ebfmi(jnp.asarray(x))),
+    np.testing.assert_allclose(td.ebfmi(x), np.asarray(jd.ebfmi(jnp.asarray(x))),
                                rtol=1e-4)
-    np.testing.assert_allclose(td.autocorrelation(x, max_lag=50).numpy(),
+    np.testing.assert_allclose(td.autocorrelation(x, max_lag=50),
                                np.asarray(jd.autocorrelation(jnp.asarray(x), max_lag=50)),
                                rtol=1e-4, atol=2e-5)
     qs = [0.0, 0.05, 0.25, 0.5, 0.75, 0.95, 1.0]
-    np.testing.assert_allclose(td.quantile(x, qs).numpy(),
+    np.testing.assert_allclose(td.quantile(x, qs),
                                np.asarray(jd.quantile(jnp.asarray(x), jnp.asarray(qs))),
                                rtol=1e-6)
-    np.testing.assert_allclose(td.quantile(x, qs).numpy(), np.quantile(x, qs), rtol=1e-6)
+    np.testing.assert_allclose(td.quantile(x, qs), np.quantile(x, qs), rtol=1e-6)
 
 
 def test_ebfmi_one_dimensional_input():
     e = _chains(seed=5, c=1)[0]
-    np.testing.assert_allclose(td.ebfmi(e).numpy(), np.asarray(jd.ebfmi(jnp.asarray(e))),
+    np.testing.assert_allclose(td.ebfmi(e), np.asarray(jd.ebfmi(jnp.asarray(e))),
                                rtol=1e-4)
 
 

@@ -7,13 +7,17 @@ without its repair:
   callable vmap cannot run, or an argument whose rows are neither one
   nor the batch's, fails naming the node; the Stan frontend's
   ``_batched`` factor callables keep the batch;
-* the top-level exports: the port's ``__all__`` is the JAX package's less
-  ``gp``, ``hmm`` and ``glm``;
+* the top-level exports: the port's ``__all__`` is the JAX package's and
+  ``particle``;
 * ``sample_stream(mechanism=...)``: "chunked" and "io_callback" give the
   callback the same draws and the run the same result, at different
   times; another value is refused, as an unknown option still is;
 * the benchmark harness: ``run_model(seeds=, ncp=, chunked=, **opts)``,
-  ``run_suite`` and ``validate(full=)``.
+  ``run_suite`` and ``validate(full=)``;
+* the public diagnostics return numpy arrays, as ``np.asarray`` of the
+  JAX package's results: numpy's reductions and ``float`` work on every
+  statistic, and example 43's ``np.min(ebfmi(stats["energy"]))`` line
+  runs on the port's own sampler output.
 """
 
 import numpy as np
@@ -115,14 +119,16 @@ def test_det_callable_on_card_is_graphed():
 
 
 def test_all_is_the_jax_packages_less_the_model_families():
-    assert set(exmc_tpu_torch.__all__) == set(exmc_tpu.__all__) - {"gp", "hmm", "glm"}
+    # the model families are ported: nothing is left out, and the
+    # particle subpackage is exported too
+    assert set(exmc_tpu_torch.__all__) == set(exmc_tpu.__all__) | {"particle"}
     assert len(exmc_tpu_torch.__all__) == len(set(exmc_tpu_torch.__all__))
     for name in exmc_tpu_torch.__all__:
         assert getattr(exmc_tpu_torch, name) is not None
     assert exmc_tpu_torch.compile_for_sampling is exmc_tpu_torch.compile_logp
     assert exmc_tpu_torch.PointMap.__module__ == "exmc_tpu_torch.point_map"
     for mod in ("diagnostics", "transforms", "log_prob", "model_comparison",
-                "predictive", "sbc"):
+                "predictive", "sbc", "gp", "hmm", "glm", "particle"):
         assert getattr(exmc_tpu_torch, mod).__name__ == f"exmc_tpu_torch.{mod}"
 
 
@@ -219,3 +225,55 @@ def test_run_suite_and_validate_full():
     _, full = validation.validate(full=True, models=["conjugate_normal", "exponential_gamma"],
                                   **kw)
     assert sorted(r["model"] for r in full) == ["conjugate_normal", "exponential_gamma"]
+
+
+# ---------------------------------------------------------------------------
+# diagnostics return numpy
+# ---------------------------------------------------------------------------
+
+_STATS = {
+    "ess": lambda d, x: d.ess(x),
+    "ess_bulk": lambda d, x: d.ess_bulk(x),
+    "ess_tail": lambda d, x: d.ess_tail(x),
+    "rhat": lambda d, x: d.rhat(x),
+    "rhat_bulk": lambda d, x: d.rhat_bulk(x),
+    "nested_rhat": lambda d, x: d.nested_rhat(x, 2),
+    "ebfmi": lambda d, x: d.ebfmi(x),
+    "autocorrelation": lambda d, x: d.autocorrelation(x, max_lag=5),
+    "quantile": lambda d, x: d.quantile(x, [0.1, 0.5, 0.9]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_STATS))
+def test_public_diagnostics_reduce_with_numpy(name):
+    x = np.random.default_rng(3).normal(size=(4, 200)).astype(np.float32)
+    from exmc_tpu import diagnostics as jd
+    from exmc_tpu_torch import diagnostics as td
+    for inp in (x, torch.as_tensor(x)):
+        got = _STATS[name](td, inp)
+        ref = np.asarray(_STATS[name](jd, jnp.asarray(x)))
+        assert isinstance(got, np.ndarray) and got.shape == ref.shape, name
+        np.testing.assert_allclose(np.min(got), np.min(ref), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(np.max(got), np.max(ref), rtol=1e-4, atol=1e-5)
+        if ref.ndim == 0:
+            np.testing.assert_allclose(float(got), float(ref), rtol=1e-4)
+    rows = td.summary({"x": x})
+    assert all(isinstance(v, float) for v in rows["x"].values())
+
+
+def test_example_43_diagnostics_line():
+    from exmc_tpu_torch.diagnostics import ebfmi, ess, rhat
+    B, D = exmc_tpu_torch.Builder, exmc_tpu_torch.dists
+    y = np.random.default_rng(0).standard_t(3, size=60) + 2.0
+    ir = B.rv(B.new_ir(), "mu", D.Normal, {"mu": 0.0, "sigma": 10.0})
+    ir = B.rv(ir, "sigma", D.HalfNormal, {"sigma": 5.0})
+    ir = B.rv(ir, "y", D.Normal, {"mu": "mu", "sigma": "sigma"}, shape=(60,))
+    ir = B.obs(ir, "y_obs", "y", y)
+    tr, st = exmc_tpu_torch.sample(ir, num_chains=4, num_warmup=100,
+                                   num_samples=100, seed=0, device="cpu")
+    line = (f"robust R-hat(mu) {rhat(tr['mu']):.4f}, "
+            f"ESS {ess(tr['mu']):.0f}, "
+            f"E-BFMI {np.min(ebfmi(st['energy'])):.2f}, "
+            f"div {int(st['divergences'].sum())}")
+    assert "E-BFMI" in line
+    assert 0.2 < np.min(ebfmi(st["energy"])) < 3.0
