@@ -75,19 +75,38 @@ Phases, each printing JSON lines:
                  four fits; example 13 (particle filter, PMMH) and SMC^2;
                  the exact-invariance battery on the card's tree (8192
                  chains);
+               * stream: example 46 through sample_stream into a
+                 LiveMonitor and a TraceStore, phase_report and
+                 annotated_run under a profiler trace
+                 (exmc_tpu_torch/benchmarks/parallel.py);
                then one summary line each for the suite, the golds, the
                entry checks, the engines, the approximate engines, the
                post tasks, the families and the pool;
-  6. kernels — one JSON object with every kernel's numbers.
+  6. parallel — started before the pool and joined after it (the pool's
+               workers are daemonic and cannot start processes): a group
+               of two gloo ranks sharing the card runs
+               sample_chains_sharded on eight schools (1024 chains,
+               200+500, pooled adaptation, ensemble rescue) with the
+               sharded diagnostics against the host's, the data-parallel
+               logistic regression at sp = 2 (n = 20,000, d = 21), the
+               fault injector and the re-dispatch of a dead chain, and
+               ChEES and SNAPER with mesh= (1024 chains, 500+500); one
+               NCCL rank runs the collectives on CUDA tensors; one line
+               per check and rank, then a summary with both walls;
+  7. kernels — one JSON object with every kernel's numbers.
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero before it. Without a CUDA card the script exits 2 at once.
 """
 
 import argparse
+import gc
 import json
 import multiprocessing
+import multiprocessing.resource_tracker
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -97,6 +116,7 @@ import torch
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
 from exmc_tpu_torch.benchmarks import engines, entry, families, post, suite, validation
+from exmc_tpu_torch.benchmarks import parallel
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -178,12 +198,18 @@ POOL_COST_S = {
     ("suite", "funnel"): 20.0,
     ("suite", "stress"): 17.0,
     ("entry", "shared_warmup"): 15.0,
+    ("parallel", "stream:example46"): 40.0,
 }
 N_GOLDS = 51
 N_ENGINE_ROWS = 9        # three engines on three models
 N_VI_ROWS = 11           # the CLI, 3 fit_map, laplace, 2 ADVI, 3 Pathfinder, the init
 N_POST_ROWS = len(post.TASKS)
 N_FAMILIES_ROWS = len(families.TASKS)
+# the parallel phase: a line per group check and rank, the NCCL rank's
+# line, the stream line
+N_PARALLEL_ROWS = len(parallel.GROUP_TASKS) * parallel.GROUP_SIZE + 2
+# deadline of the parallel ranks, which run alongside the pool
+PARALLEL_TIMEOUT_S = 1000.0
 
 
 def emit(obj):
@@ -201,6 +227,33 @@ def nvidia_smi_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def stop_children(wait_s=30.0):
+    """Stop multiprocessing's resource tracker and wait for it (left
+    alone, it exits after this process and stays a zombie until init
+    reaps it), then return the pids of this process's children still
+    running after up to ``wait_s`` seconds; exited ones are reaped."""
+    gc.collect()  # a dead pool's semaphores unregister before the tracker stops
+    multiprocessing.resource_tracker._resource_tracker._stop()
+    deadline = time.monotonic() + wait_s
+    while True:
+        running = []
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/stat", encoding="ascii") as f:
+                    state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            except (OSError, ValueError):
+                continue
+            if int(ppid) != os.getpid():
+                continue
+            if state == "Z":
+                os.waitpid(int(pid), os.WNOHANG)
+            else:
+                running.append(int(pid))
+        if not running or time.monotonic() >= deadline:
+            return running
+        time.sleep(0.5)
 
 
 def time_cuda(fn, reps, warmup=2):
@@ -326,13 +379,14 @@ def pool_tasks():
              + [("entry", t) for t in entry.TASKS]
              + [("engines", t) for t in engines.TASKS]
              + [("post", t) for t in post.TASKS]
-             + [("families", t) for t in families.TASKS])
+             + [("families", t) for t in families.TASKS]
+             + [("parallel", "stream:example46")])
     return sorted(tasks, key=lambda t: -POOL_COST_S.get(t, 0.0))
 
 
 PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry", "engines": "engines",
-            "post": "post", "families": "families"}
-POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post", "families")
+            "post": "post", "families": "families", "parallel": "parallel"}
+POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post", "families", "parallel")
 
 
 def run_task(task):
@@ -367,9 +421,9 @@ def _run_task(kind, name):
             line["fused_leapfrog_gaussian_launches"] = (
                 fused_leapfrog_gaussian.launches if i == 0 else 0)
         return lines
-    if kind in ("post", "families"):
+    if kind in ("post", "families", "parallel"):
         fused_leapfrog_gaussian.launches = 0
-        module = post if kind == "post" else families
+        module = {"post": post, "families": families, "parallel": parallel}[kind]
         lines = [{"task": name, **res} for res in module.run_task(name, "cuda")]
         lines[0]["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
         return lines
@@ -435,7 +489,7 @@ def phase_pool(workers=POOL_WORKERS):
           "n": n_entry,
           "fused_leapfrog_gaussian_launches": launches["entry"]})
 
-    for p in ("engines", "vi", "post", "families"):
+    for p in ("engines", "vi", "post", "families", "parallel"):
         for res in by_phase[p]:
             if not res["ok"]:
                 name = res.get("check") or f"{res['model']}:{res['engine']}"
@@ -481,6 +535,53 @@ def phase_pool(workers=POOL_WORKERS):
             or n_fam != N_FAMILIES_ROWS):
         fail(f"engines/vi/post/families: {n_eng}, {n_vi}, {n_post} and {n_fam} results, "
              f"expected {N_ENGINE_ROWS}, {N_VI_ROWS}, {N_POST_ROWS} and {N_FAMILIES_ROWS}")
+    return launches, by_phase["parallel"]
+
+
+def start_parallel(workdir):
+    """Start the parallel phase's ranks: the group of two gloo ranks on
+    the card and the one-rank NCCL group."""
+    group = parallel.start_ranks(
+        parallel.group_main, parallel.GROUP_SIZE,
+        (parallel.GROUP_TASKS, parallel.FULL, "cuda"),
+        workdir=f"{workdir}/group", timeout_s=PARALLEL_TIMEOUT_S)
+    nccl = parallel.start_ranks(parallel.nccl_main, 1, (parallel.FULL, "cuda"),
+                                backend="nccl", workdir=f"{workdir}/nccl",
+                                timeout_s=PARALLEL_TIMEOUT_S)
+    return group, nccl
+
+
+def phase_parallel(group, nccl, pool_lines):
+    """Join the ranks, print their lines and the phase's summary with
+    ``pool_lines`` (the stream task's); returns the fused-leapfrog
+    kernel's launches in the ranks."""
+    lines = []
+    for run in (group, nccl):
+        try:
+            per_rank = run.wait()
+        except Exception:  # noqa: BLE001 - a failed rank fails the phase
+            fail(f"parallel ranks: {traceback.format_exc()[-3000:]}")
+        lines += [{"phase": "parallel", **res} for res in sum(per_rank, [])]
+    for line in lines:
+        emit(line)
+    lines += pool_lines
+    launches = sum(x.pop("fused_leapfrog_gaussian_launches", 0) for x in lines)
+    failures = [f"{x['check']}: {'; '.join(x['failures'])}" for x in lines if not x["ok"]]
+    by_check = {}
+    for x in lines:
+        by_check.setdefault(x["check"], []).append(x)
+    es = by_check.get("parallel:eight_schools_dp2", [])
+    emit({"phase": "parallel_summary", "n_pass": len(lines) - len(failures),
+          "n": len(lines), "group_seconds": group.seconds, "nccl_seconds": nccl.seconds,
+          "eight_schools_dp2": [{k: x.get(k) for k in ("rank", "wall_s", "host_syncs",
+                                                        "host_staged_collectives",
+                                                        "peak_mb", "chain_ok")}
+                                for x in es],
+          "fused_leapfrog_gaussian_launches": launches})
+    if failures:
+        fail("parallel: " + " | ".join(failures))
+    if len(lines) != N_PARALLEL_ROWS:
+        fail(f"parallel: {len(lines)} results, expected {N_PARALLEL_ROWS}")
     return launches
 
 
@@ -513,7 +614,19 @@ def main(argv=None):
         fail(f"ops path launched the kernel {path_launches} times, "
              f"expected {len(OPS_SHAPES)}")
     main_launches = phase_main(args.warmup, args.draws)
-    pool_launches = phase_pool()
+    with tempfile.TemporaryDirectory() as workdir:
+        group, nccl = start_parallel(workdir)
+        try:
+            pool_launches, stream_lines = phase_pool()
+            parallel_launches = (phase_parallel(group, nccl, stream_lines)
+                                 + pool_launches["parallel"])
+        finally:
+            group.kill()
+            nccl.kill()
+            parallel.stop_rank_server()
+    stray = stop_children()
+    if stray:
+        fail(f"processes still running at the end: {stray}")
 
     big = rows[-1]
     print(smi, flush=True)
@@ -533,6 +646,7 @@ def main(argv=None):
         "vi_path_launches": pool_launches["vi"],
         "post_path_launches": pool_launches["post"],
         "families_path_launches": pool_launches["families"],
+        "parallel_path_launches": parallel_launches,
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

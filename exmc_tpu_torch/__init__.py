@@ -4,7 +4,11 @@ The JAX package ``exmc_tpu`` is the reference; this package mirrors its
 module names and is held against it by ``tests/test_torch_*.py``. It
 imports torch, numpy, scipy and the standard library only. Entry points
 run on ``device="cuda"`` unless the caller asks for ``"cpu"``.
-``__all__`` is the JAX package's and the subpackage ``particle``.
+``__all__`` is the JAX package's and the subpackage ``particle``. As in
+the JAX package, ``exmc_tpu_torch.parallel`` (sampling over several
+devices, ``torch.distributed``), ``exmc_tpu_torch.utils`` (fault
+injection, checkpoints, the trace store, profiling) and
+``exmc_tpu_torch.viz`` (the live monitor) are imported on their own.
 """
 
 from exmc_tpu_torch import dists

@@ -12,7 +12,8 @@ syncs); the tests run them on the CPU at small sizes.
   with a checkpoint after every chunk, by a run resumed from the
   checkpoint on disk when the first chunk with draws ends, and by
   ``sample_stream`` in chunks and with ``every``; every run's draws and
-  stats bit for bit ``run``'s.
+  stats bit for bit ``run``'s (256 chains, 60 + 60: cut from 120 + 120
+  when the parallel phase joined ``chip_smoke.py``).
 * ``data_warm_start``: a conjugate Normal-mean model whose observations
   ride the data channel, fitted on data set A, refitted on B through the
   same cached sampler with ``data=`` and a warm start from A's tuning,
@@ -161,7 +162,7 @@ def check_cli(device="cuda", chains=64, warmup=120, samples=120, gates=True):
 # chunked, resumed and streamed runs
 # ---------------------------------------------------------------------------
 
-def check_chunked_and_stream(device="cuda", chains=256, warmup=120, samples=120,
+def check_chunked_and_stream(device="cuda", chains=256, warmup=60, samples=60,
                              chunk=50, every=10, gates=True):
     """Returns the ``chunked`` and the ``stream`` results: ``run``,
     ``run_chunked`` with a checkpoint, the run resumed from the

@@ -173,7 +173,9 @@ ALIASES = {
 CARD_RECIPE = {"num_chains": 64, "num_warmup": 120, "num_samples": 120, "seed": 42}
 # Golds whose card recipe differs. The masked tree loop runs as long as
 # the deepest tree of the batch, so the GRW (depth ~7 throughout) takes
-# 16 chains. The radon and crossed-effects posteriors are correlated
+# 16 chains, and 80 + 80 (its own 64 + 64 after the scaling below;
+# 150 + 150 until the parallel phase joined chip_smoke.py's pool, then
+# 100 + 100). The radon and crossed-effects posteriors are correlated
 # Gaussians: a dense metric pooled over the 64 chains whitens them
 # (0.64x and 0.53x the diagonal metric's syncs per iteration, and crossed's
 # R-hat 1.005 against 1.023). avtest_binomial_glmm's data pin each
@@ -183,7 +185,7 @@ CARD_RECIPE = {"num_chains": 64, "num_warmup": 120, "num_samples": 120, "seed": 
 # linear in (mu, a_e), and the dense metric whitens it.
 _DENSE_POOLED = {"dense_mass": True, "pooled_adaptation": True}
 CARD_OVERRIDES = {
-    "grw_kalman_t1000": {"num_chains": 16, "num_warmup": 150, "num_samples": 150},
+    "grw_kalman_t1000": {"num_chains": 16, "num_warmup": 80, "num_samples": 80},
     "radon_varying_intercept": {"extra_opts": _DENSE_POOLED},
     "crossed_random_effects_lmm": {"extra_opts": _DENSE_POOLED},
     "avtest_binomial_glmm": {"num_chains": 16, "num_warmup": 200, "num_samples": 200,

@@ -53,19 +53,30 @@ def welford_update(state: WelfordState, x, enabled):
     )
 
 
-def welford_merge_across(state: WelfordState) -> WelfordState:
+def welford_merge_across(state: WelfordState, group=None) -> WelfordState:
     """Merge the per-chain states over dim 0 as if all chains' draws were
     one stream (Chan et al. parallel variance). Returns one state with
-    no chain axis: n (), mean (d,), m2 (d,)."""
+    no chain axis: n (), mean (d,), m2 (d,).
+
+    ``group`` (a ``parallel.sharding.AxisGroup``) merges the chains of
+    every rank along it, two-pass and centred as in one process: one
+    ``all_reduce`` of (sum n, sum n * mean) gives the global mean, a
+    second one of sum (m2 + n (mean - global mean)^2). The one-pass
+    E[x^2] - E[x]^2 form would cancel in f32 at large offsets."""
     n_tot = state.n.sum(0)
+    mean_sum = (state.n[:, None] * state.mean).sum(0)
+    if group is not None:
+        n_tot, mean_sum = group.psum(n_tot, mean_sum)
     safe = torch.clamp_min(n_tot, 1.0)
-    mean_tot = (state.n[:, None] * state.mean).sum(0) / safe
+    mean_tot = mean_sum / safe
     delta = state.mean - mean_tot
     if state.m2.ndim == 3:
         corr = state.n[:, None, None] * delta[:, :, None] * delta[:, None, :]
     else:
         corr = state.n[:, None] * delta * delta
     m2_tot = (state.m2 + corr).sum(0)
+    if group is not None:
+        (m2_tot,) = group.psum(m2_tot)
     return WelfordState(n=n_tot, mean=mean_tot, m2=m2_tot)
 
 

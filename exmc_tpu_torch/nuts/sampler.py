@@ -30,6 +30,13 @@ inits; and a cache of samplers keyed on the IR's signature.
 ``init="pathfinder"`` starts the chains from draws of a multi-path
 Pathfinder fit (``pathfinder.pathfinder_init``). ``sample(engine=...)``
 dispatches to the ensemble engines (``chees.py``, ``meads.py``).
+
+Over several ranks (``parallel.sample_chains_sharded``) each rank runs
+this pipeline on its own chains: ``NUTSSampler(group=...)`` takes the
+pooled Welford merge, the ensemble rescue and the shared warmup's
+tuning over every rank's chains, and ``vag_builder`` swaps in the
+data-parallel value-and-grad. The tree loop syncs on this rank's chains
+only, with no collective.
 """
 
 import hashlib
@@ -108,18 +115,27 @@ def _init_position(generator, shape, dtype, device, radius=2.0):
     return u * (2.0 * radius) - radius
 
 
-def _find_valid_init(vag_fn, q0, generator, max_tries=100, syncs=None):
+def _find_valid_init(vag_fn, q0, generator, max_tries=100, syncs=None, group=None):
     """Redraw each chain's init point until its logp and grad are finite,
-    with a radius that shrinks as 2.0 * 0.8^i (floored at 1e-3)."""
+    with a radius that shrinks as 2.0 * 0.8^i (floored at 1e-3).
+
+    Under a ``group`` of ranks, ``q0`` is this rank's block of the
+    chains: every rank redraws while a chain of any rank is bad, each
+    redraw drawing the whole batch and keeping this rank's rows, so that
+    ``generator`` stays in step with the one-process run's."""
     syncs = HostSyncs() if syncs is None else syncs
     q = q0
+    n = q.shape[0] * (1 if group is None else group.size)
+    rows = slice(None) if group is None else group.block(n, "chains")
     logp, grad = vag_fn(q)
     for i in range(max_tries):
         bad = ~(torch.isfinite(logp) & torch.isfinite(grad).all(-1))
-        if not syncs.any(bad):
+        any_bad = bad if group is None else group.psum(bad.sum())[0] > 0
+        if not syncs.any(any_bad):
             break
         radius = max(2.0 * 0.8 ** i, 1e-3)
-        q_new = _init_position(generator, q.shape, q.dtype, q.device, radius)
+        q_new = _init_position(generator, (n,) + tuple(q.shape[1:]), q.dtype, q.device,
+                               radius)[rows]
         logp_new, grad_new = vag_fn(q_new)
         q = keep(bad, q_new, q)
         logp = keep(bad, logp_new, logp)
@@ -189,24 +205,45 @@ def _pipeline_init(vag_fn, q0, logp0, grad0, metric0, eps0=None,
                  metric0, zeros, zeros)
 
 
-def _rescue(vag_fn, q, logp, grad, metric, rescues, generator):
+def _rescue_reference(q, logp, inv, group=None):
+    """(logp of every chain, q and inv of the 75th-percentile chain) over
+    the chains of all ranks of ``group`` (None: this process's chains):
+    every rank's logp gathered by a zero-padded ``all_reduce``, and the
+    reference chain's q and inv summed from its owner (the others add
+    zeros). It reads nothing on the host itself; under gloo each
+    ``all_reduce`` of CUDA tensors is staged through the host
+    (``AxisGroup.host_staged`` counts them)."""
+    c = logp.shape[0]
+    all_logp = logp if group is None else group.gather_rows(logp)
+    n = all_logp.shape[0]
+    ref_idx = torch.argsort(all_logp, stable=True)[int(np.ceil(0.75 * (n - 1)))]
+    owner = (ref_idx // c) == (0 if group is None else group.index)
+    local = torch.remainder(ref_idx, c)
+    q_ref = torch.where(owner, q[local], torch.zeros_like(q[0]))
+    inv_ref = torch.where(owner, inv[local], torch.zeros_like(inv[0]))
+    if group is not None:
+        q_ref, inv_ref = group.psum(q_ref, inv_ref)
+    return all_logp, all_logp[ref_idx], q_ref, inv_ref
+
+
+def _rescue(vag_fn, q, logp, grad, metric, rescues, generator, group=None):
     """Warmup ENSEMBLE RESCUE: chains whose logp sits far below the
     75th-percentile chain adopt that chain's position (jittered) and
     metric. The threshold is max(50, 1.5 sqrt(d)) nats; a majority is
-    never rescued; with fewer than 5 chains nothing happens."""
+    never rescued; with fewer than 5 chains nothing happens. With a
+    ``group`` of several ranks the percentile and the majority are taken
+    over the chains of all of them."""
     c, d = q.shape
-    if c < 5:
+    if c * (1 if group is None else group.size) < 5:
         return q, logp, grad, metric, rescues
-    order = torch.argsort(logp, stable=True)
-    ref_idx = order[int(np.ceil(0.75 * (c - 1)))]
-    ref = logp[ref_idx]
+    all_logp, ref, q_ref, inv_ref = _rescue_reference(q, logp, metric.inv, group)
     thresh = ref - max(50.0, 1.5 * np.sqrt(d))
-    frac = (logp < thresh).to(q.dtype).mean()
+    frac = (all_logp < thresh).to(q.dtype).mean()
     bad = (logp < thresh) & (frac <= 0.5)
     noise = torch.randn(c, d, generator=generator, dtype=q.dtype, device=q.device)
-    q_new = keep(bad, q[ref_idx] + 0.01 * noise, q)
+    q_new = keep(bad, q_ref + 0.01 * noise, q)
     logp_new, grad_new = vag_fn(q_new)
-    inv_new = keep(bad, metric.inv[ref_idx].expand_as(metric.inv), metric.inv)
+    inv_new = keep(bad, inv_ref.expand_as(metric.inv), metric.inv)
     return (q_new, logp_new, grad_new, make_metric(inv_new, dense=metric.dense),
             rescues + bad.to(torch.int32))
 
@@ -215,14 +252,16 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
                       adapt_mass, pooled=False, rescue=False, generator=None,
                       syncs=None, interweave_fn=None, freeze_mask=None,
                       cond_metric_fn=None, emit_fn=None, emit_every=1,
-                      draw_offset=0):
+                      draw_offset=0, group=None):
     """Run the iterations of ``xs`` (see ``_pipeline_xs``) for every
     chain. ``pooled`` merges the Welford moments across all chains at
     each window end; ``rescue`` runs the ensemble rescue at the
     post-window checkpoints. ``interweave_fn`` runs after each
     transition; ``freeze_mask`` (d,) re-zeroes the frozen scales'
     inverse mass at each window end; ``cond_metric_fn(q, inv)`` gives
-    the metric of each transition and eps search. ``emit_fn(i, q,
+    the metric of each transition and eps search. ``group`` (an
+    ``AxisGroup`` of ranks holding the other chains) takes the pooled
+    merge and the rescue over every rank's chains. ``emit_fn(i, q,
     stats)`` receives every ``emit_every``-th post-warmup draw of the
     run, ``i`` counting draws from the run's first (the segment's first
     is draw ``draw_offset``).
@@ -252,7 +291,7 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
         warm = bool(in_warm[it])
         if rescue and resc[it]:
             q, logp, grad, metric, rescues = _rescue(
-                vag_fn, q, logp, grad, metric, rescues, generator)
+                vag_fn, q, logp, grad, metric, rescues, generator, group)
         # gibbs_scales: the frozen scales' latents get their analytic
         # conditional inverse mass at the current scale values
         metric_t = (metric if cond_metric_fn is None
@@ -293,7 +332,7 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
             enabled = ~st["diverging"] if upd[it] else torch.zeros_like(st["diverging"])
             wf = welford_update(wf, q, enabled)
             if win[it]:
-                wf_eff = welford_merge_across(wf) if pooled else wf
+                wf_eff = welford_merge_across(wf, group) if pooled else wf
                 inv = welford_finalize(wf_eff, metric.inv)
                 if freeze_mask is not None:
                     # the Gibbs legs move the frozen scales between
@@ -374,6 +413,12 @@ class NUTSSampler:
     gibbs_scales: bool = False
     ensemble_rescue: bool = True
     adapt_mass: bool = True
+    # data -> vag_fn override: the sp-sharded likelihood's hook
+    # (parallel.sharding.make_data_parallel_vag)
+    vag_builder: object = None
+    # the AxisGroup of ranks holding the run's other chains: the pooled
+    # merge, the rescue and the shared warmup's tuning span them
+    group: object = None
     last_run: dict = field(default_factory=dict)
 
     def __post_init__(self):
@@ -489,10 +534,15 @@ class NUTSSampler:
         """The run's value-and-grad and interweave step, with its data
         (a ``DeviceData``, or None for the model's own) bound."""
         vag, iw = self.model.value_and_grad, self._iw_fn
-        if ddata is None:
-            return vag, iw
-        return ((lambda q: vag(q, ddata)),
-                None if iw is None else (lambda q, g: iw(q, g, data=ddata)))
+        if self.vag_builder is not None:
+            vag_fn = self.vag_builder(ddata)
+        elif ddata is None:
+            vag_fn = vag
+        else:
+            vag_fn = lambda q: vag(q, ddata)  # noqa: E731
+        if iw is None or ddata is None:
+            return vag_fn, iw
+        return vag_fn, (lambda q, g: iw(q, g, data=ddata))
 
     def _start(self, num_chains, seed, init, warm_start, ddata):
         """Init search and the pipeline's first carry: the warmup of
@@ -516,7 +566,7 @@ class NUTSSampler:
                 self._schedule, self.num_samples, self.max_tree_depth)
             seg_kw.update(adapt_mass=self.adapt_mass,
                           pooled=self.pooled_adaptation,
-                          rescue=self.ensemble_rescue)
+                          rescue=self.ensemble_rescue, group=self.group)
         else:
             k = 2 if self.dense_mass else 1
             eps = torch.as_tensor(warm_start["step_size"], dtype=default_dtype(),
@@ -550,7 +600,9 @@ class NUTSSampler:
     def _run_shared(self, num_chains, seed, init, ddata, stream_cb, every):
         """Shared warmup: chain 0 runs the warmup alone, then every chain
         samples from its own init with chain 0's step size and metric,
-        under a generator seeded apart from the warmup's."""
+        under a generator seeded apart from the warmup's. Under a
+        ``group`` every rank takes the tuning of the first rank's chain
+        0."""
         dev = self.model.device
         vag, _ = self._vag_iw(ddata)
         syncs = HostSyncs()
@@ -565,8 +617,11 @@ class NUTSSampler:
             vag, carry, _pipeline_xs(self._schedule, 0, self.max_tree_depth),
             self.target_accept, self.max_tree_depth, self.adapt_mass,
             generator=gen, syncs=syncs)
-        eps = da_finalize(carry.da).expand(num_chains).clone()
-        inv = carry.metric.inv.expand((num_chains,) + carry.metric.inv.shape[1:]).clone()
+        eps, inv = da_finalize(carry.da), carry.metric.inv
+        if self.group is not None:
+            eps, inv = self.group.broadcast(eps), self.group.broadcast(inv)
+        eps = eps.expand(num_chains).clone()
+        inv = inv.expand((num_chains,) + inv.shape[1:]).clone()
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + SHARED_SAMPLING_SEED_OFFSET)

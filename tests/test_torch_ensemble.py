@@ -291,8 +291,11 @@ def test_engine_dispatch_refusals():
         exmc_tpu_torch.sample(ir, engine="meads", warm_start={}, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         exmc_tpu_torch.sample(ir, engine="gibbs", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tchees.sample_chees(ir, mesh=object(), device="cpu")
+    class ThreeRanks:  # mesh= now runs; 64 chains do not split over 3 ranks
+        shape = {"dp": 3, "sp": 1}
+
+    with pytest.raises(ValueError, match="not divisible by dp=3"):
+        tchees.sample_chees(ir, mesh=ThreeRanks(), device="cpu")
     with pytest.raises(ValueError, match="criterion='chees'"):
         tchees.sample_snaper(ir, criterion="chees", device="cpu")
     with pytest.raises(ValueError, match="not divisible"):

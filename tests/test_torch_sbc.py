@@ -145,7 +145,7 @@ def test_grouped_chees_equals_separate_runs(criterion):
     carry = chees._init_carry(vag, q0, lp, gr, z_eps, criterion, HostSyncs())
     carry, outs = chees._run(vag, carry, kernel, 0.651, 1024, criterion,
                              lambda i: (zs[i], us[i]), HostSyncs())
-    assert outs["num_steps"].shape == (s, g)
+    assert outs["num_steps"].shape == (w + s, g)
     for k in range(g):
         sl = slice(k * m, (k + 1) * m)
         c1 = chees._init_carry(vag, q0[sl], lp[sl], gr[sl], z_eps[k:k + 1], criterion,
