@@ -6,7 +6,10 @@ Phases, each printing JSON lines:
   1. device  — the card's name, the device count, nvidia-smi's name and
                power limit;
   2. build   — nvcc build of every source in exmc_tpu_torch/csrc, with
-               its seconds and the -Xptxas -v report;
+               its seconds and the -Xptxas -v report; then the native
+               tree binding's g++ build (exmc_tpu_torch/native) and its
+               lockstep with the card's masked tree on 300 trees of
+               forced directions (native:lockstep);
   3. ops     — the public op ``fused_leapfrog_gaussian`` driven at four
                shapes (launch counts read around that run), then each
                kernel held against its plain PyTorch version on the same
@@ -79,9 +82,19 @@ Phases, each printing JSON lines:
                  LiveMonitor and a TraceStore, phase_report and
                  annotated_run under a profiler trace
                  (exmc_tpu_torch/benchmarks/parallel.py);
+               * apps: the application layer
+                 (exmc_tpu_torch/benchmarks/apps.py): example 06 at its
+                 full settings and the two-player recipe of
+                 tests/test_apps.py; the multi-table session (one
+                 batched NUTS run over three tables); example 05's
+                 inverse heat problem at full width, its NUTS run cut
+                 to 16 chains of 30 + 20; and a fresh process running
+                 eight schools twice (aot:cold_start), the first run's
+                 excess being what a cache of compiled executables
+                 could save;
                then one summary line each for the suite, the golds, the
                entry checks, the engines, the approximate engines, the
-               post tasks, the families and the pool;
+               post tasks, the families, the apps and the pool;
   6. parallel — started before the pool and joined after it (the pool's
                workers are daemonic and cannot start processes): a group
                of two gloo ranks sharing the card runs
@@ -115,7 +128,7 @@ import torch
 
 from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
-from exmc_tpu_torch.benchmarks import engines, entry, families, post, suite, validation
+from exmc_tpu_torch.benchmarks import apps, engines, entry, families, post, suite, validation
 from exmc_tpu_torch.benchmarks import parallel
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
@@ -134,10 +147,10 @@ TOL_LOGP_ABS = 1e-3    # logp sums d terms in another order than torch.sum
 TOL_LOGP_REL = 1e-5
 
 # Suite phase: (warmup, draws) of every model, one seed. The JAX
-# package's suite runs 1000+1000 x 5 seeds; this is the shortest run the
-# gates are stated for, and it keeps the script within half its time
-# limit on one card (PERF.md, "Suite on the card").
-SUITE_ITERS = (150, 150)
+# package's suite runs 1000+1000 x 5 seeds; 150 + 150 until the apps
+# tasks joined the pool, cut to 120 + 120 to bring the script toward its
+# 800 s budget (PERF.md, Findings).
+SUITE_ITERS = (120, 120)
 
 # Pool phase: worker processes sharing the card (one host sync per tree
 # leaf; together they reach ~1,300-1,840 syncs/s whether 4, 6 or 8 run,
@@ -148,11 +161,12 @@ POOL_WORKERS = 4
 # recipe) at ~2.3 ms a sync, the entry tasks' from their runs' sizes,
 # the engine tasks' from their runs alone on the card, the post tasks'
 # from their first run in the pool, the families tasks' from their first
-# run in the pool scaled to their cut recipes (PERF.md, Findings).
+# run in the pool scaled to their cut recipes, the apps tasks' from
+# their first run in the pool (PERF.md, Findings).
 # Only the order matters: the long tasks never start last.
 POOL_COST_S = {
-    ("suite", "eight_schools"): 250.0,
-    ("families", "families:gp_glm"): 145.0,
+    ("suite", "eight_schools"): 200.0,
+    ("families", "families:gp_glm"): 100.0,
     ("families", "families:sv_marginal"): 120.0,
     ("families", "families:ar_kalman"): 55.0,
     ("families", "families:particle"): 32.0,
@@ -199,12 +213,17 @@ POOL_COST_S = {
     ("suite", "stress"): 17.0,
     ("entry", "shared_warmup"): 15.0,
     ("parallel", "stream:example46"): 40.0,
+    ("apps", "apps:poker"): 240.0,
+    ("apps", "apps:physics"): 120.0,
+    ("apps", "apps:poker_multitable"): 95.0,
+    ("apps", "aot:cold_start"): 25.0,
 }
 N_GOLDS = 51
 N_ENGINE_ROWS = 9        # three engines on three models
 N_VI_ROWS = 11           # the CLI, 3 fit_map, laplace, 2 ADVI, 3 Pathfinder, the init
 N_POST_ROWS = len(post.TASKS)
 N_FAMILIES_ROWS = len(families.TASKS)
+N_APPS_ROWS = len(apps.TASKS)
 # the parallel phase: a line per group check and rank, the NCCL rank's
 # line, the stream line
 N_PARALLEL_ROWS = len(parallel.GROUP_TASKS) * parallel.GROUP_SIZE + 2
@@ -380,13 +399,15 @@ def pool_tasks():
              + [("engines", t) for t in engines.TASKS]
              + [("post", t) for t in post.TASKS]
              + [("families", t) for t in families.TASKS]
+             + [("apps", t) for t in apps.TASKS]
              + [("parallel", "stream:example46")])
     return sorted(tasks, key=lambda t: -POOL_COST_S.get(t, 0.0))
 
 
 PHASE_OF = {"suite": "suite", "gold": "golds", "entry": "entry", "engines": "engines",
-            "post": "post", "families": "families", "parallel": "parallel"}
-POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post", "families", "parallel")
+            "post": "post", "families": "families", "parallel": "parallel", "apps": "apps"}
+POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post", "families", "parallel",
+               "apps")
 
 
 def run_task(task):
@@ -421,9 +442,9 @@ def _run_task(kind, name):
             line["fused_leapfrog_gaussian_launches"] = (
                 fused_leapfrog_gaussian.launches if i == 0 else 0)
         return lines
-    if kind in ("post", "families", "parallel"):
+    if kind in ("post", "families", "parallel", "apps"):
         fused_leapfrog_gaussian.launches = 0
-        module = {"post": post, "families": families, "parallel": parallel}[kind]
+        module = {"post": post, "families": families, "parallel": parallel, "apps": apps}[kind]
         lines = [{"task": name, **res} for res in module.run_task(name, "cuda")]
         lines[0]["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
         return lines
@@ -489,7 +510,7 @@ def phase_pool(workers=POOL_WORKERS):
           "n": n_entry,
           "fused_leapfrog_gaussian_launches": launches["entry"]})
 
-    for p in ("engines", "vi", "post", "families", "parallel"):
+    for p in ("engines", "vi", "post", "families", "parallel", "apps"):
         for res in by_phase[p]:
             if not res["ok"]:
                 name = res.get("check") or f"{res['model']}:{res['engine']}"
@@ -521,6 +542,12 @@ def phase_pool(workers=POOL_WORKERS):
           "tasks": [{k: r.get(k) for k in ("check", "wall_s", "host_syncs", "peak_mb", "ok")}
                     for r in rows],
           "fused_leapfrog_gaussian_launches": launches["families"]})
+    rows = by_phase["apps"]
+    n_apps = len(rows) + n_errors["apps"]
+    emit({"phase": "apps_summary", "n_pass": n_apps - len(failures["apps"]), "n": n_apps,
+          "tasks": [{k: r.get(k) for k in ("check", "wall_s", "host_syncs", "peak_mb", "ok")}
+                    for r in rows],
+          "fused_leapfrog_gaussian_launches": launches["apps"]})
     emit({"phase": "pool_summary", "seconds": seconds, "workers": workers,
           "tasks": len(tasks)})
 
@@ -532,9 +559,10 @@ def phase_pool(workers=POOL_WORKERS):
         if fs:
             fail(f"{p}: " + " | ".join(fs))
     if (n_eng != N_ENGINE_ROWS or n_vi != N_VI_ROWS or n_post != N_POST_ROWS
-            or n_fam != N_FAMILIES_ROWS):
-        fail(f"engines/vi/post/families: {n_eng}, {n_vi}, {n_post} and {n_fam} results, "
-             f"expected {N_ENGINE_ROWS}, {N_VI_ROWS}, {N_POST_ROWS} and {N_FAMILIES_ROWS}")
+            or n_fam != N_FAMILIES_ROWS or n_apps != N_APPS_ROWS):
+        fail(f"engines/vi/post/families/apps: {n_eng}, {n_vi}, {n_post}, {n_fam} and "
+             f"{n_apps} results, expected {N_ENGINE_ROWS}, {N_VI_ROWS}, {N_POST_ROWS}, "
+             f"{N_FAMILIES_ROWS} and {N_APPS_ROWS}")
     return launches, by_phase["parallel"]
 
 
@@ -608,6 +636,10 @@ def main(argv=None):
     for src, info in built.items():
         emit({"phase": "build", "source": f"exmc_tpu_torch/csrc/{src}.cu",
               "seconds": info["seconds"], "nvcc_log": info["log"]})
+    lockstep = apps.check_native_lockstep("cuda")
+    emit({"phase": "build", **lockstep})
+    if not lockstep["ok"]:
+        fail(f"native:lockstep: {'; '.join(lockstep['failures'])}")
 
     path_launches, rows = phase_ops()
     if path_launches != len(OPS_SHAPES):
@@ -647,6 +679,7 @@ def main(argv=None):
         "post_path_launches": pool_launches["post"],
         "families_path_launches": pool_launches["families"],
         "parallel_path_launches": parallel_launches,
+        "apps_path_launches": pool_launches["apps"],
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],

@@ -35,10 +35,12 @@ device memory); the tests run the same code on the CPU at small sizes.
   200 + 250, cut from 400 + 500; smoothing and Viterbi at the posterior
   mean). Gates: the example's recovery and decoding asserts.
 * ``families:gp_glm`` (``check_gp_glm``): example 41 (N = 50, 2 chains,
-  250 + 250, cut from 500 + 500: the marginal GP regression, which runs
+  150 + 150, cut from 500 + 500 to 250 + 250, then to 150 + 150 when the
+  apps tasks joined the pool: the marginal GP regression, which runs
   eagerly (a sampled covariance), and ``gp_predict``, the latent
   classifier) and ``tests/test_glm.py``'s four GLM fits at its sizes
-  (2 chains, 200 + 200, cut from 400 + 400), each with its gates.
+  (2 chains, 150 + 150, cut from 400 + 400 to 200 + 200, then to
+  150 + 150), each with its gates.
 * ``families:particle`` (``check_particle``): example 13 (the SIR
   epidemic: a 512-particle filter, PMMH with 4 chains x 800) and
   ``smc2`` at ``tests/test_particle.py``'s sizes against the Kalman
@@ -445,7 +447,7 @@ def _glm_fits(dev, iters, chains):
     return out, fails
 
 
-def check_gp_glm(device="cuda", n=50, gp_iters=(250, 250), glm_iters=(200, 200), chains=2):
+def check_gp_glm(device="cuda", n=50, gp_iters=(150, 150), glm_iters=(150, 150), chains=2):
     dev = prepare_device(device)
     with _Measure(dev) as m:
         gp_out, gp_fails = _gp_example(dev, n, gp_iters, chains)

@@ -8,10 +8,11 @@ Multi-rank checks run in one group of ranks started by ``start_ranks``
 one GPU), one after another (``GROUP_TASKS``):
 
 * ``parallel:eight_schools_dp2`` — eight schools with auto-NCP, 1024
-  chains, 200 + 500, pooled adaptation, ensemble rescue, max depth 10,
-  through ``sample_chains_sharded`` over dp = 2: mu 4.4 ± 0.3, tau 3.6 ±
-  0.3, divergence rate < 2e-3, nested R-hat (K = 32) < 1.01, one inverse
-  mass for all chains, and the sharded R-hat, ESS and nested R-hat on
+  chains, 200 + 300 (the main path's 200 + 500, cut when the apps tasks
+  joined ``chip_smoke.py``'s pool), pooled adaptation, ensemble rescue,
+  max depth 10, through ``sample_chains_sharded`` over dp = 2: mu 4.4 ±
+  0.3, tau 3.6 ± 0.3, divergence rate < 2e-3, nested R-hat (K = 32) <
+  1.01, one inverse mass for all chains, and the sharded R-hat, ESS and nested R-hat on
   each rank's chains equal to the host versions on the gathered trace
   (relative 1e-5);
 * ``parallel:logistic_sp2`` — the JAX package's
@@ -86,7 +87,7 @@ GROUP_SIZE = 2
 
 # fault_iters: (warmup, draws) of the faulted run and of the re-dispatched
 # one (half the JAX tests', to keep chip_smoke.py within its budget)
-FULL = dict(es_chains=1024, es_iters=(200, 500), es_superchains=32,
+FULL = dict(es_chains=1024, es_iters=(200, 300), es_superchains=32,
             lg_rows=20_000, lg_dim=21, lg_chains=64, lg_iters=(300, 300),
             ch_chains=1024, ch_iters=(500, 500), stream_iters=(500, 1000),
             fault_iters=((100, 75), (75, 50)))

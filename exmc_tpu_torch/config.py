@@ -8,8 +8,10 @@ float64 every flat vector, compiled log-density, sampler state and
 constant is float64 and the exp/log clamp widens to 200, as under the
 JAX package's ``EXMC_TPU_X64=1``. Entry points take an explicit
 ``device`` that defaults to ``"cuda"``; the CPU is used only when the
-caller asks for it. The XLA/AOT caches of the JAX package have no
-counterpart here yet (ROADMAP §1 item 14).
+caller asks for it. The XLA executable caches of the JAX package
+(``aot.py``, ``compilation_cache_dir`` and the other cache helpers) have
+no counterpart: the port compiles no executable ahead of time, and
+``EXMC_AOT_CACHE`` has no effect on it (ROADMAP §3).
 """
 
 import contextlib
@@ -84,3 +86,23 @@ def prepare_device(device=None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def backend_info(device=None):
+    """Runtime backend report with the JAX package's keys
+    (``exmc_tpu/config.py:205``), filled with torch's values for
+    ``device`` (default ``"cuda"``): ``platform`` is ``"gpu"`` on a card
+    and ``"cpu"`` otherwise, and ``devices`` names each visible card."""
+    dev = prepare_device(device)
+    if dev.type == "cuda":
+        devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+        platform = "gpu"
+    else:
+        devices, platform = ["cpu"], "cpu"
+    return {
+        "platform": platform,
+        "num_devices": len(devices),
+        "devices": devices,
+        "x64": x64_enabled(),
+        "default_dtype": str(default_dtype()).removeprefix("torch."),
+    }

@@ -322,3 +322,22 @@ def nuts_transition(vag_fn, metric: Metric, eps, q, logp, grad, max_depth,
         "energy": -st.joint_prop,
     }
     return st.z_prop, st.logp_prop, st.g_prop, stats
+
+
+def build_nuts_kernel(vag_fn, max_depth=10):
+    """Bind ``vag_fn`` and ``max_depth`` into a transition kernel::
+
+        kernel(q, logp, grad, eps, metric, max_depth_dyn=None,
+               generator=None, rand=None) -> (q', logp', grad', stats)
+
+    over :func:`nuts_transition`. Where the JAX package's kernel takes a
+    PRNG key, this one draws from ``generator`` (a ``torch.Generator``)
+    or takes injected draws (``rand``)."""
+
+    def kernel(q, logp, grad, eps, metric, max_depth_dyn=None, generator=None,
+               rand=None):
+        return nuts_transition(vag_fn, metric, eps, q, logp, grad, max_depth,
+                               max_depth_dyn=max_depth_dyn, generator=generator,
+                               rand=rand)
+
+    return kernel

@@ -7,7 +7,7 @@ exact-invariance batteries, run on the port's tree on the CPU.
   per-doubling direction bits are extracted on the host from the JAX
   kernel's key-split discipline and injected into the port's batched
   transition (all 300 trials are one batch of chains); the same
-  directions are forced into ``exmc_tpu.native.build_full_tree`` on
+  directions are forced into ``exmc_tpu_torch.native.build_full_tree`` on
   f64 leapfrog chains precomputed from the same start. Tree shape is a
   deterministic function of geometry and directions, so depth,
   leapfrog count and the divergence flag must be EXACTLY equal; the
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from exmc_tpu import native
+from exmc_tpu_torch import native
 from exmc_tpu.nuts.leapfrog import make_metric as jmake_metric
 from exmc_tpu.nuts.leapfrog import sample_momentum as jsample_momentum
 from exmc_tpu_torch.benchmarks.families import (
