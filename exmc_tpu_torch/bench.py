@@ -3,10 +3,8 @@
 adaptation, ensemble rescue, target_accept 0.8, max_depth 10.
 
 Run on the card with ``python -m exmc_tpu_torch.bench``; prints one JSON
-line with the fields of ``bench.py`` plus the port's own counts.
-``--profile --warmup 20 --draws 10`` instead profiles a short run and
-prints the device's busy share and its top kernels. Wall time is one
-run after a short warm-up run (the port compiles nothing;
+line with the fields of ``bench.py`` plus the port's own counts. Wall
+time is one run after a short warm-up run (the port compiles nothing;
 the warm-up run pays for CUDA context, allocator and library start-up).
 """
 
@@ -104,61 +102,15 @@ def run(device="cuda", num_chains=1024, num_warmup=200, num_samples=500,
     }
 
 
-def profile(num_chains=1024, num_warmup=20, num_samples=10):
-    """A short run of the pipeline on the card under ``torch.profiler``,
-    after one unprofiled run of the same length. Returns the wall time,
-    the summed device time of the kernels, their share of the wall (the
-    device's busy share; the profiler's own host cost lowers it), the
-    kernel launches, and the kernels that took the most device time."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    sampler = _make_sampler(eight_schools_ir(), device="cuda",
-                            num_warmup=num_warmup, num_samples=num_samples,
-                            pooled_adaptation=True)
-    sampler.run(num_chains=num_chains, seed=0, init=("superchain", 32))
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sampler.run(num_chains=num_chains, seed=1, init=("superchain", 32))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "device": torch.cuda.get_device_name(0),
-        "iterations": [num_warmup, num_samples],
-        "wall_s_profiled": wall,
-        "device_kernel_s": device_us / 1e6,
-        "device_busy_share": device_us / 1e6 / wall,
-        "kernel_launches": len(kernels),
-        "host_syncs": sampler.last_run["host_syncs"],
-        "top_kernels_s": [[name, us / 1e6] for name, us in top],
-    }
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--chains", type=int, default=1024)
     ap.add_argument("--warmup", type=int, default=200)
     ap.add_argument("--draws", type=int, default=500)
-    ap.add_argument("--profile", action="store_true",
-                    help="profile a short run on the card instead "
-                         "(--warmup/--draws set its length)")
     args = ap.parse_args(argv)
-    if args.profile:
-        out = profile(num_chains=args.chains, num_warmup=args.warmup,
-                      num_samples=args.draws)
-    else:
-        out = run(device=args.device, num_chains=args.chains,
-                  num_warmup=args.warmup, num_samples=args.draws)
+    out = run(device=args.device, num_chains=args.chains,
+              num_warmup=args.warmup, num_samples=args.draws)
     print(json.dumps(out))
 
 

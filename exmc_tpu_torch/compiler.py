@@ -53,6 +53,7 @@ from exmc_tpu_torch.dists.base import get as get_dist
 from exmc_tpu_torch.dists.composite import CENSORED
 from exmc_tpu_torch.ir import IR, _is_batched
 from exmc_tpu_torch.point_map import PointMap
+from exmc_tpu_torch.utils import profiling
 
 OBS_DATA_KEY = "__obs_data"
 
@@ -748,12 +749,20 @@ def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
 
 
 def _make_value_and_grad(logp):
-    def value_and_grad(flat, data=None):
+    def eager(flat, data):
         with torch.enable_grad():
             x = flat.detach().requires_grad_(True)
             lp = logp(x, data)
             (g,) = torch.autograd.grad(lp.sum(), x)
         return lp.detach(), g
+
+    def value_and_grad(flat, data=None):
+        if not profiling.TRACING:
+            return eager(flat, data)
+        token = profiling.leaf_begin("exmc.vag")
+        out = eager(flat, data)
+        profiling.leaf_end("exmc.vag", token)
+        return out
 
     return value_and_grad
 
@@ -783,11 +792,21 @@ class GraphedValueAndGrad:
     def __call__(self, flat, data=None):
         if flat.device.type != "cuda":
             return self.eager(flat, data)
+        if not profiling.TRACING:
+            return self._replay(flat, data)
+        token = profiling.leaf_begin("exmc.vag")
+        out = self._replay(flat, data)
+        profiling.leaf_end("exmc.vag", token)
+        return out
+
+    def _replay(self, flat, data):
         leaves = [] if data is None else data.leaves()
         key = (tuple(flat.shape), flat.dtype, flat.device,
                tuple((tuple(t.shape), t.dtype) for t in leaves))
         if key not in self.graphs:
-            self.graphs[key] = self._capture(flat, data)
+            # the capture's own eager calls are none of the run's calls
+            with profiling.tracing(False):
+                self.graphs[key] = self._capture(flat, data)
         x, bufs, sources, lp, g, graph = self.graphs[key]
         x.copy_(flat)
         for i, (buf, t) in enumerate(zip(bufs, leaves)):

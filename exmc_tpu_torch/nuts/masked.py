@@ -6,22 +6,44 @@ port's loops do the same: each iteration computes the body for the
 whole batch and keeps the new value only where the chain's predicate
 holds (``keep``). Deciding whether to run another iteration reads the
 batch's predicate on the host, one device sync per iteration;
-``HostSyncs`` counts them.
+``HostSyncs`` counts them, and the run's value-and-grad calls.
 """
 
 import torch
 
+from exmc_tpu_torch.utils import profiling
+
 
 class HostSyncs:
-    """Counts the host syncs of the masked loops of one run."""
+    """Counts one run's host syncs of the masked loops (``count``), the
+    count when its first post-warmup iteration began (``warmup``; None
+    until then), and its value-and-grad calls by site (``vag_calls``;
+    ``counted`` wraps a site's value-and-grad)."""
 
     def __init__(self):
         self.count = 0
+        self.warmup = None
+        self.vag_calls = {}
 
     def any(self, mask) -> bool:
         """True if any chain is still active (one device -> host sync)."""
         self.count += 1
-        return bool(mask.any())
+        if not profiling.TRACING:
+            return bool(mask.any())
+        token = profiling.leaf_begin("exmc.sync")
+        out = bool(mask.any())
+        profiling.leaf_end("exmc.sync", token)
+        return out
+
+    def counted(self, vag_fn, site):
+        """``vag_fn``, each call counted in ``vag_calls[site]``."""
+        self.vag_calls.setdefault(site, 0)
+
+        def vag(*args, **kwargs):
+            self.vag_calls[site] += 1
+            return vag_fn(*args, **kwargs)
+
+        return vag
 
 
 def keep(active, new, old):

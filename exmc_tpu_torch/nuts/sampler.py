@@ -39,6 +39,7 @@ data-parallel value-and-grad. The tree loop syncs on this rank's chains
 only, with no collective.
 """
 
+import functools
 import hashlib
 import warnings
 from collections import OrderedDict
@@ -76,6 +77,7 @@ from exmc_tpu_torch.nuts.step_size import (
 from exmc_tpu_torch.nuts.tree import nuts_transition
 from exmc_tpu_torch.nuts.warmup import build_schedule
 from exmc_tpu_torch.transforms import Transform
+from exmc_tpu_torch.utils import profiling
 
 DEFAULT_OPTS = dict(
     num_warmup=1000,
@@ -113,6 +115,13 @@ def _init_position(generator, shape, dtype, device, radius=2.0):
     """Stan-style random init: Uniform(-r, r) in unconstrained space."""
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return u * (2.0 * radius) - radius
+
+
+# where a NUTS run calls the model's value-and-grad (``HostSyncs.counted``
+# counts each site's calls): the tree's leapfrog steps, the init search,
+# the step-size search, the dead-chain recovery's fresh point, the
+# ensemble rescue and the interweave step
+VAG_SITES = ("leaf", "init", "eps_search", "recovery", "rescue", "interweave")
 
 
 def _find_valid_init(vag_fn, q0, generator, max_tries=100, syncs=None, group=None):
@@ -188,6 +197,7 @@ class Carry(NamedTuple):
     metric: Metric             # inv (C, d)
     recoveries: torch.Tensor   # (C,) int32
     rescues: torch.Tensor      # (C,) int32
+    n_steps_warmup: torch.Tensor  # (C,) int32, leapfrog steps of the warmup iterations
 
 
 def _pipeline_init(vag_fn, q0, logp0, grad0, metric0, eps0=None,
@@ -195,14 +205,16 @@ def _pipeline_init(vag_fn, q0, logp0, grad0, metric0, eps0=None,
     c, d = q0.shape
     if eps0 is None and init_search:
         # only for schedules with no warmup iterations to host the search
-        z = torch.randn(c, d, generator=generator, dtype=q0.dtype, device=q0.device)
-        eps0 = find_reasonable_epsilon(vag_fn, q0, logp0, grad0, metric0, z,
-                                       syncs=syncs)
+        syncs = HostSyncs() if syncs is None else syncs
+        with profiling.span("exmc.eps_search"):
+            z = torch.randn(c, d, generator=generator, dtype=q0.dtype, device=q0.device)
+            eps0 = find_reasonable_epsilon(syncs.counted(vag_fn, "eps_search"), q0, logp0,
+                                           grad0, metric0, z, syncs=syncs)
     eps = torch.full_like(logp0, 1.0) if eps0 is None else eps0
     zeros = torch.zeros(c, dtype=torch.int32, device=q0.device)
     return Carry(q0, logp0, grad0, da_init(eps),
                  welford_init(c, d, q0.dtype, q0.device, dense=metric0.dense),
-                 metric0, zeros, zeros)
+                 metric0, zeros, zeros, zeros)
 
 
 def _rescue_reference(q, logp, inv, group=None):
@@ -266,10 +278,16 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
     run, ``i`` counting draws from the run's first (the segment's first
     is draw ``draw_offset``).
 
+    With tracing on (``utils.profiling``) the iterations run in an
+    ``exmc.warmup`` and an ``exmc.draws`` span, and their parts in the
+    spans ``exmc.rescue``, ``exmc.eps_search``, ``exmc.tree``,
+    ``exmc.recovery`` and ``exmc.adapt``.
+
     Returns (carry, draws (C, S, d), stats {name: (C, S)}) for the S
     post-warmup iterations of the segment."""
     syncs = HostSyncs() if syncs is None else syncs
-    q, logp, grad, da, wf, metric, recoveries, rescues = carry
+    vag = {site: syncs.counted(vag_fn, site) for site in VAG_SITES}
+    q, logp, grad, da, wf, metric, recoveries, rescues, n_steps_warmup = carry
     c, d = q.shape
     dev, dtype = q.device, q.dtype
     upd, win, caps, in_warm, search, resc, _ = xs
@@ -287,59 +305,73 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
     if interweave_fn is not None:
         stats["iw_accept"] = torch.empty(c, n_draws, dtype=dtype, device=dev)
     k = 0  # post-warmup iterations of the segment so far
+    phase = None  # the open exmc.warmup or exmc.draws span
     for it in range(len(upd)):
         warm = bool(in_warm[it])
+        if not warm and syncs.warmup is None:
+            syncs.warmup = syncs.count
+        name = "exmc.warmup" if warm else "exmc.draws"
+        if profiling.TRACING and (phase is None or phase.name != name):
+            profiling.end(phase)
+            phase = profiling.begin(name)
         if rescue and resc[it]:
-            q, logp, grad, metric, rescues = _rescue(
-                vag_fn, q, logp, grad, metric, rescues, generator, group)
+            with profiling.span("exmc.rescue"):
+                q, logp, grad, metric, rescues = _rescue(
+                    vag["rescue"], q, logp, grad, metric, rescues, generator, group)
         # gibbs_scales: the frozen scales' latents get their analytic
         # conditional inverse mass at the current scale values
         metric_t = (metric if cond_metric_fn is None
                     else make_metric(cond_metric_fn(q, metric.inv)))
         if search[it]:
-            z = torch.randn(c, d, generator=generator, dtype=dtype, device=dev)
-            da = da_init(find_reasonable_epsilon(vag_fn, q, logp, grad,
-                                                 metric_t, z, syncs=syncs))
+            with profiling.span("exmc.eps_search"):
+                z = torch.randn(c, d, generator=generator, dtype=dtype, device=dev)
+                da = da_init(find_reasonable_epsilon(vag["eps_search"], q, logp, grad,
+                                                     metric_t, z, syncs=syncs))
         eps = torch.exp(da.log_eps) if warm else da_finalize(da)
-        q, logp, grad, st = nuts_transition(
-            vag_fn, metric_t, eps, q, logp, grad, max_depth, int(caps[it]),
-            generator=generator, syncs=syncs)
+        with profiling.span("exmc.tree"):
+            q, logp, grad, st = nuts_transition(
+                vag["leaf"], metric_t, eps, q, logp, grad, max_depth, int(caps[it]),
+                generator=generator, syncs=syncs)
+        if warm:
+            n_steps_warmup = n_steps_warmup + st["n_steps"]
         # dead-chain recovery: a non-finite accepted state re-initializes
         # near the origin during warmup. The fresh point is evaluated on
         # every iteration, as in the JAX pipeline.
-        dead = ~(torch.isfinite(logp) & torch.isfinite(q).all(-1))
-        q_fresh = _init_position(generator, (c, d), dtype, dev, radius=0.1)
-        logp_f, grad_f = vag_fn(q_fresh)
-        if warm:
-            q = keep(dead, q_fresh, q)
-            logp = keep(dead, logp_f, logp)
-            grad = keep(dead, grad_f, grad)
-            recoveries = recoveries + dead.to(torch.int32)
+        with profiling.span("exmc.recovery"):
+            dead = ~(torch.isfinite(logp) & torch.isfinite(q).all(-1))
+            q_fresh = _init_position(generator, (c, d), dtype, dev, radius=0.1)
+            logp_f, grad_f = vag["recovery"](q_fresh)
+            if warm:
+                q = keep(dead, q_fresh, q)
+                logp = keep(dead, logp_f, logp)
+                grad = keep(dead, grad_f, grad)
+                recoveries = recoveries + dead.to(torch.int32)
         if interweave_fn is not None:
             logp_pre = logp
             q, iw_acc = interweave_fn(q, generator)
-            logp, grad = vag_fn(q)
+            logp, grad = vag["interweave"](q)
             # the recorded draw is the post-interweave state: shift the
             # energy's potential term with it, so energy + logp stays the
             # kinetic energy
             st = dict(st, energy=st["energy"] - (logp - logp_pre))
-        if warm:
-            # the dual-averaging signal stays per chain even under pooled
-            # mass adaptation
-            da = da_update(da, st["accept_prob"], target_accept)
-        if adapt_mass:
-            # divergent draws are excluded from Welford
-            enabled = ~st["diverging"] if upd[it] else torch.zeros_like(st["diverging"])
-            wf = welford_update(wf, q, enabled)
-            if win[it]:
-                wf_eff = welford_merge_across(wf, group) if pooled else wf
-                inv = welford_finalize(wf_eff, metric.inv)
-                if freeze_mask is not None:
-                    # the Gibbs legs move the frozen scales between
-                    # transitions; keep them out of the dynamics
-                    inv = inv * freeze_mask
-                metric = make_metric(inv, dense=metric.dense)
-                wf = welford_init(c, d, dtype, dev, dense=metric.dense)
+        with profiling.span("exmc.adapt"):
+            if warm:
+                # the dual-averaging signal stays per chain even under
+                # pooled mass adaptation
+                da = da_update(da, st["accept_prob"], target_accept)
+            if adapt_mass:
+                # divergent draws are excluded from Welford
+                enabled = ~st["diverging"] if upd[it] else torch.zeros_like(st["diverging"])
+                wf = welford_update(wf, q, enabled)
+                if win[it]:
+                    wf_eff = welford_merge_across(wf, group) if pooled else wf
+                    inv = welford_finalize(wf_eff, metric.inv)
+                    if freeze_mask is not None:
+                        # the Gibbs legs move the frozen scales between
+                        # transitions; keep them out of the dynamics
+                        inv = inv * freeze_mask
+                    metric = make_metric(inv, dense=metric.dense)
+                    wf = welford_init(c, d, dtype, dev, dense=metric.dense)
         if not warm:
             draws[:, k] = q
             for name in ("depth", "n_steps", "diverging", "accept_prob", "energy"):
@@ -351,7 +383,8 @@ def _pipeline_segment(vag_fn, carry: Carry, xs, target_accept, max_depth,
             if emit_fn is not None and (draw_offset + k + 1) % emit_every == 0:
                 emit_fn(draw_offset + k, q, {n: v[:, k] for n, v in stats.items()})
             k += 1
-    carry = Carry(q, logp, grad, da, wf, metric, recoveries, rescues)
+    profiling.end(phase)
+    carry = Carry(q, logp, grad, da, wf, metric, recoveries, rescues, n_steps_warmup)
     return carry, draws, stats
 
 
@@ -382,6 +415,29 @@ def _unflatten(cls, arrays, device, prefix=""):
     return cls(*vals)
 
 
+def _run_counts(syncs: HostSyncs, iterations):
+    """``last_run`` of a run whose counts ``syncs`` holds."""
+    return {"host_syncs": syncs.count,
+            "host_syncs_warmup": syncs.count if syncs.warmup is None else syncs.warmup,
+            "iterations": iterations,
+            "vag_calls": {site: syncs.vag_calls.get(site, 0) for site in VAG_SITES}}
+
+
+def _fit_spans(run):
+    """``run`` (a sampler method) as one ``exmc.fit`` span; with tracing
+    on, the sampler's ``last_run`` then holds the fit's spans by name."""
+
+    @functools.wraps(run)
+    def traced(self, *args, **kwargs):
+        with profiling.fit_spans() as spans:
+            out = run(self, *args, **kwargs)
+        if spans:
+            self.last_run["spans"] = spans
+        return out
+
+    return traced
+
+
 @dataclass
 class _Pipeline:
     """What one run of the per-chain pipeline threads through its
@@ -399,7 +455,12 @@ class _Pipeline:
 @dataclass
 class NUTSSampler:
     """Reusable sampler over a compiled model. ``last_run`` holds what the
-    most recent run counted: its host syncs and iterations."""
+    most recent run counted: its host syncs (``host_syncs``; before its
+    first post-warmup iteration, the init search included:
+    ``host_syncs_warmup``), its iterations, its value-and-grad calls by
+    site (``vag_calls``, keyed by ``VAG_SITES``) and, with
+    tracing on (``utils.profiling.tracing``), its spans by name
+    (``spans``: {name: {"count", "total_s", "self_s"}})."""
 
     model: CompiledModel
     num_warmup: int = DEFAULT_OPTS["num_warmup"]
@@ -544,6 +605,7 @@ class NUTSSampler:
             return vag_fn, iw
         return vag_fn, (lambda q, g: iw(q, g, data=ddata))
 
+    @profiling.spanned("exmc.init")
     def _start(self, num_chains, seed, init, warm_start, ddata):
         """Init search and the pipeline's first carry: the warmup of
         ``_schedule``, or with ``warm_start`` the fine-tune of
@@ -554,7 +616,7 @@ class NUTSSampler:
         gen.manual_seed(seed)
         syncs = HostSyncs()
         q_inits = self._resolve_inits(init, num_chains, seed, ddata)
-        q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
+        q0, logp0, grad0 = _find_valid_init(syncs.counted(vag, "init"), q_inits, gen, syncs=syncs)
         seg_kw = dict(interweave_fn=iw, freeze_mask=self._freeze_mask,
                       cond_metric_fn=self._cond_metric_fn)
         if warm_start is None:
@@ -606,13 +668,15 @@ class NUTSSampler:
         dev = self.model.device
         vag, _ = self._vag_iw(ddata)
         syncs = HostSyncs()
-        q_inits = self._resolve_inits(init, num_chains, seed, ddata)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        q0, logp0, grad0 = _find_valid_init(vag, q_inits[:1], gen, syncs=syncs)
-        carry = _pipeline_init(vag, q0, logp0, grad0, self._init_metric(1),
-                               init_search=(self.num_warmup == 0),
-                               generator=gen, syncs=syncs)
+        with profiling.span("exmc.init"):
+            q_inits = self._resolve_inits(init, num_chains, seed, ddata)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            q0, logp0, grad0 = _find_valid_init(syncs.counted(vag, "init"), q_inits[:1], gen,
+                                              syncs=syncs)
+            carry = _pipeline_init(vag, q0, logp0, grad0, self._init_metric(1),
+                                   init_search=(self.num_warmup == 0),
+                                   generator=gen, syncs=syncs)
         carry, _, _ = _pipeline_segment(
             vag, carry, _pipeline_xs(self._schedule, 0, self.max_tree_depth),
             self.target_accept, self.max_tree_depth, self.adapt_mass,
@@ -622,13 +686,18 @@ class NUTSSampler:
             eps, inv = self.group.broadcast(eps), self.group.broadcast(inv)
         eps = eps.expand(num_chains).clone()
         inv = inv.expand((num_chains,) + inv.shape[1:]).clone()
+        # chain 0 ran the warmup's steps; the others ran none
+        n_steps_warmup = torch.cat([carry.n_steps_warmup,
+                                    carry.n_steps_warmup.new_zeros(num_chains - 1)])
 
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed + SHARED_SAMPLING_SEED_OFFSET)
-        q0, logp0, grad0 = _find_valid_init(vag, q_inits, gen, syncs=syncs)
-        carry = _pipeline_init(vag, q0, logp0, grad0,
-                               make_metric(inv, dense=self.dense_mass),
-                               eps0=eps, generator=gen, syncs=syncs)
+        with profiling.span("exmc.init"):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + SHARED_SAMPLING_SEED_OFFSET)
+            q0, logp0, grad0 = _find_valid_init(syncs.counted(vag, "init"), q_inits, gen, syncs=syncs)
+            carry = _pipeline_init(vag, q0, logp0, grad0,
+                                   make_metric(inv, dense=self.dense_mass),
+                                   eps0=eps, generator=gen, syncs=syncs)
+        carry = carry._replace(n_steps_warmup=n_steps_warmup)
         p = _Pipeline(vag, carry, _pipeline_xs(build_schedule(0), self.num_samples,
                                                self.max_tree_depth),
                       0, gen, syncs, dict(adapt_mass=False))
@@ -649,14 +718,18 @@ class NUTSSampler:
         def emit(i, q, stats):
             vals = {**constrain(q), **stats}
             host = {k: v.to("cpu", non_blocking=True) for k, v in vals.items()}
+            token = profiling.leaf_begin("exmc.sync") if profiling.TRACING else None
             if q.device.type == "cuda":
                 torch.cuda.current_stream(q.device).synchronize()
+            if token is not None:
+                profiling.leaf_end("exmc.sync", token)
             syncs.count += 1
             host = {k: v.numpy() for k, v in host.items()}
             callback(i, {k: host[k] for k in names}, {k: host[k] for k in stats})
 
         return emit
 
+    @_fit_spans
     def run(self, num_chains=1, seed=0, init=None, warm_start=None, data=None,
             return_unconstrained=False, stream_cb=None, stream_every=1):
         """Warmup + sampling of ``num_chains`` chains. Returns (trace,
@@ -682,10 +755,10 @@ class NUTSSampler:
                                       self._emitter(stream_cb, ddata, p.syncs),
                                       stream_every)
         # a shared warmup's iterations ran on chain 0 before p's
-        self.last_run = {"host_syncs": p.syncs.count,
-                         "iterations": len(p.xs[0]) + (self.num_warmup if shared else 0)}
+        self.last_run = _run_counts(p.syncs, len(p.xs[0]) + (self.num_warmup if shared else 0))
         return self._finish(p.carry, draws, st, ddata, return_unconstrained)
 
+    @_fit_spans
     def run_chunked(self, num_chains=1, chunk_iters=200, seed=0, init=None,
                     data=None, warm_start=None, return_unconstrained=False,
                     progress=False, callback=None, checkpoint_path=None,
@@ -712,14 +785,22 @@ class NUTSSampler:
             done, draws_parts, stats_parts = 0, [], []
         else:
             # the pipeline's structure (xs, options) from a start whose
-            # carry and generator the checkpoint then replaces
+            # carry, generator and counts the checkpoint then replaces. A
+            # checkpoint written before the run counted warmup's steps
+            # and the value-and-grad calls has neither: those counts
+            # start at the resume, and warmup's host syncs at the first
+            # post-warmup iteration from there
             with np.load(resume_from) as z:
                 arrays = {k: z[k] for k in z.files}
             p = self._start(num_chains, seed, None, warm_start, ddata)
-            p.carry = _unflatten(Carry, {k[6:]: v for k, v in arrays.items()
-                                         if k.startswith("carry.")}, dev)
+            carry = {k[6:]: v for k, v in arrays.items() if k.startswith("carry.")}
+            carry.setdefault("n_steps_warmup", np.zeros(num_chains, np.int32))
+            p.carry = _unflatten(Carry, carry, dev)
             p.generator.set_state(torch.as_tensor(arrays["generator"]))
             p.syncs.count = int(arrays["host_syncs"])
+            warmup = int(arrays.get("host_syncs_warmup", -1))
+            p.syncs.warmup = None if warmup < 0 else warmup
+            p.syncs.vag_calls = {k: int(arrays.get(f"vag_calls.{k}", 0)) for k in VAG_SITES}
             done = int(arrays["done"])
             draws_parts = [torch.as_tensor(arrays["draws"], device=dev)]
             stats_parts = [{k[5:]: torch.as_tensor(v, device=dev)
@@ -744,18 +825,23 @@ class NUTSSampler:
         draws = torch.cat(draws_parts, dim=1)
         stats = {k: torch.cat([s[k] for s in stats_parts], dim=1)
                  for k in stats_parts[0]}
-        self.last_run = {"host_syncs": p.syncs.count, "iterations": total}
+        self.last_run = _run_counts(p.syncs, total)
         return self._finish(p.carry, draws, stats, ddata, return_unconstrained)
 
     @staticmethod
     def _save_chunk_state(path, p: _Pipeline, done, draws_parts, stats_parts):
-        """The carry, the generator's state, the host-sync count, the
-        progress index and the draws and stats so far, in one .npz."""
+        """The carry, the generator's state, the run's counts (host syncs,
+        value-and-grad calls), the progress index and the draws and stats
+        so far, in one .npz."""
         payload = {f"carry.{k}": (v.cpu().numpy() if torch.is_tensor(v)
                                   else np.asarray(v))
                    for k, v in _flatten(p.carry).items()}
         payload["generator"] = p.generator.get_state().numpy()
         payload["host_syncs"] = np.asarray(p.syncs.count)
+        payload["host_syncs_warmup"] = np.asarray(
+            -1 if p.syncs.warmup is None else p.syncs.warmup)
+        for k in VAG_SITES:
+            payload[f"vag_calls.{k}"] = np.asarray(p.syncs.vag_calls.get(k, 0))
         payload["done"] = np.asarray(done)
         payload["draws"] = torch.cat(draws_parts, dim=1).cpu().numpy()
         for k in stats_parts[0]:
@@ -764,13 +850,19 @@ class NUTSSampler:
         with open(path, "wb") as f:
             np.savez(f, **payload)
 
+    @profiling.spanned("exmc.finish")
     def _finish(self, carry, draws, st, ddata, return_unconstrained):
+        """The run's (trace or draws, stats) on the host; the run's counts
+        come from ``last_run``."""
         stats = {k: v.cpu().numpy() for k, v in st.items()}
         stats["step_size"] = da_finalize(carry.da).cpu().numpy()
         stats["inv_mass"] = carry.metric.inv.cpu().numpy()
         stats["recoveries"] = carry.recoveries.cpu().numpy()
         stats["rescues"] = carry.rescues.cpu().numpy()
+        stats["n_steps_warmup"] = carry.n_steps_warmup.cpu().numpy()
         stats["divergences"] = stats["diverging"].sum(axis=-1)
+        stats["host_syncs"] = self.last_run["host_syncs"]
+        stats["vag_calls"] = self.last_run["vag_calls"]
         _warn_if_rescued(stats["rescues"])
         if return_unconstrained:
             return draws.cpu().numpy(), stats

@@ -126,11 +126,12 @@ def sample_chains_sharded(ir, num_chains, mesh=None, *, seed=0, data=None,
                           **{k: opts[k] for k in KNOWN_OPTS if k in opts})
     draws, stats = sampler.run(num_chains=num_chains // dp, seed=rank_seed(seed, mesh),
                                data=data, return_unconstrained=True)
-    host_syncs = sampler.last_run["host_syncs"]
+    # the run's counts stay this rank's; the per-chain stats are gathered
+    counts = {k: stats.pop(k) for k in ("host_syncs", "vag_calls")}
     gather = _host_gather(mesh)
     draws = gather(draws)
     stats = {k: gather(v) for k, v in stats.items()}
-    stats["host_syncs"] = host_syncs
+    stats.update(counts)
     trace = sampler.constrain_trace(draws, data)
     return _redispatch_failed_chains(
         sampler, mesh, trace, stats, draws, data, seed,

@@ -58,7 +58,13 @@ def test_posterior_and_stats(run):
             "energy": (C, DRAWS), "logp": (C, DRAWS), "step_size": (C,),
             "inv_mass": (C, d), "recoveries": (C,), "rescues": (C,),
             "divergences": (C,)}
-    assert {k: v.shape for k, v in stats.items()} == want
+    # and the port's counts: warmup's steps per chain, the run's host
+    # syncs and value-and-grad calls by site
+    counts = {"host_syncs", "vag_calls"}
+    assert ({k: v.shape for k, v in stats.items() if k not in counts}
+            == dict(want, n_steps_warmup=(C,)))
+    assert stats["host_syncs"] == sampler.last_run["host_syncs"]
+    assert stats["vag_calls"] == sampler.last_run["vag_calls"]
     assert np.isfinite(draws).all() and (stats["step_size"] > 0).all()
     # pooled adaptation gives every chain the same inverse mass
     assert np.allclose(stats["inv_mass"], stats["inv_mass"][:1])
