@@ -13,7 +13,11 @@ Phases, each printing JSON lines:
   3. ops     — the public op ``fused_leapfrog_gaussian`` driven at four
                shapes (launch counts read around that run), then each
                kernel held against its plain PyTorch version on the same
-               inputs and timed with CUDA events beside its bound;
+               inputs and timed with CUDA events beside its bound; then
+               the Bernoulli-logit GLM kernel (``ops.glm_logit``) at
+               covertype's shape, 64 chains x 581,012 rows x 54 columns,
+               against its plain version in float64, timed beside its
+               bound and the plain version in float32;
   4. main    — the bench pipeline (eight schools, 1024 chains, superchain
                K=32, 200+500 iterations, pooled adaptation, ensemble
                rescue, max_depth 10) with its posterior checked against
@@ -130,6 +134,7 @@ from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
 from exmc_tpu_torch.benchmarks import apps, engines, entry, families, post, suite, validation
 from exmc_tpu_torch.benchmarks import parallel
+from exmc_tpu_torch.ops import glm_logit
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
     reference_leapfrog_gaussian,
@@ -141,6 +146,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 
 OPS_SHAPES = [(8, 4, 16), (16, 128, 64), (1024, 256, 32), (8192, 256, 2048)]
+# the GLM kernel's (chains, rows, columns): covertype's; each sum is held
+# to GLM_TOL of the sum of the magnitudes it adds (float32 rounding grown
+# by summation depth)
+GLM_SHAPE = (64, 581_012, 54)
+GLM_TOL = 1e-5
 OPS_EPS = 0.05
 TOL_QP = 1e-4          # |kernel - plain| on q and p (same f32 steps, no FMA)
 TOL_LOGP_ABS = 1e-3    # logp sums d terms in another order than torch.sum
@@ -347,6 +357,44 @@ def phase_ops():
                  f"plain version: q/p {err_qp}, logp {err_logp}")
         rows.append(row)
     return path_launches, rows
+
+
+def phase_glm_kernel():
+    """The GLM likelihood kernel at covertype's shape against its plain
+    version in float64, and its time beside its bound and the plain
+    version's in float32."""
+    t0 = time.perf_counter()
+    c, n, d = GLM_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(n, d, generator=g, device="cuda")
+    y = (torch.rand(n, generator=g, device="cuda") < 0.5).float()
+    beta = torch.randn(c, d, generator=g, device="cuda") * 0.2
+    b0 = torch.randn(c, generator=g, device="cuda") * 0.2
+    glm_logit.glm_logit_value_and_grad.launches = 0
+    lp, g_beta, g_b0 = glm_logit.glm_logit_value_and_grad(x, y, beta, b0)
+    x64, y64, beta64, b064 = x.double(), y.double(), beta.double(), b0.double()
+    want = glm_logit.glm_logit_plain(x64, y64, beta64, b064)
+    eta = beta64 @ x64.T + b064[:, None]
+    terms = (y64 * eta - torch.logaddexp(torch.zeros_like(eta), eta)).abs().sum(-1)
+    r = (y64 - torch.sigmoid(eta)).abs()
+    err = {"lp": float(((lp.double() - want[0]).abs() / terms).max()),
+           "g_beta": float(((g_beta.double() - want[1]).abs() / (r @ x64.abs())).max()),
+           "g_b0": float(((g_b0.double() - want[2]).abs() / r.sum(-1)).max())}
+    del eta, r
+    kernel_ms = time_cuda(lambda: glm_logit.glm_logit_value_and_grad(x, y, beta, b0), reps=50)
+    plain_ms = time_cuda(lambda: glm_logit.glm_logit_plain(x, y, beta, b0), reps=5, warmup=1)
+    t_ops = 4.0 * n * d * c / PEAK_F32_OPS_S * 1e3
+    t_bytes = 4.0 * n * (d + 1) / PEAK_BYTES_S * 1e3
+    row = {"shape_c_n_d": list(GLM_SHAPE), "max_rel_err": err, "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "share_of_bound": max(t_ops, t_bytes) / kernel_ms, "library_ms": None,
+           "launches": glm_logit.glm_logit_value_and_grad.launches,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "ops", "kernel": "glm_logit", **row})
+    if not max(err.values()) <= GLM_TOL:
+        fail(f"glm_logit at {GLM_SHAPE} disagrees with the plain version: {err}")
+    return row
 
 
 def check_model_on_card():
@@ -645,6 +693,7 @@ def main(argv=None):
     if path_launches != len(OPS_SHAPES):
         fail(f"ops path launched the kernel {path_launches} times, "
              f"expected {len(OPS_SHAPES)}")
+    glm_row = phase_glm_kernel()
     main_launches = phase_main(args.warmup, args.draws)
     with tempfile.TemporaryDirectory() as workdir:
         group, nccl = start_parallel(workdir)
@@ -687,8 +736,15 @@ def main(argv=None):
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": None,
-        "seconds_total": time.perf_counter() - t_start,
-    }]})
+    }, {
+        "name": "glm_logit",
+        "route": "cuda",
+        "source": "exmc_tpu_torch/csrc/glm_logit.cu",
+        "replaces": None,
+        "launches_path": "exmc_tpu_torch.ops.glm_logit at covertype's shape (its launches "
+                         "on the sampler paths are CUDA graph replays, which run no Python)",
+        **glm_row,
+    }], "seconds_total": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})
 

@@ -51,7 +51,9 @@ from exmc_tpu_torch import transforms as tf
 from exmc_tpu_torch.config import default_dtype, np_dtype, prepare_device
 from exmc_tpu_torch.dists.base import get as get_dist
 from exmc_tpu_torch.dists.composite import CENSORED
+from exmc_tpu_torch.glm import LinearPredictor
 from exmc_tpu_torch.ir import IR, _is_batched
+from exmc_tpu_torch.ops import glm_logit as glm_logit_op
 from exmc_tpu_torch.point_map import PointMap
 from exmc_tpu_torch.utils import profiling
 
@@ -406,6 +408,10 @@ class CompiledModel:
     value_and_grad: Callable    # ((C, d), data=None) -> ((C,), (C, d))
     device: torch.device
     data: Any = None            # the model's own data (Builder.data)
+    # the observations whose term in value_and_grad the Bernoulli-logit
+    # GLM kernel computes (``glm_logit_terms``); ``logp`` keeps the eager
+    # form, which a Hessian differentiates twice
+    lik_kernel_terms: tuple = ()
 
     @property
     def size(self) -> int:
@@ -677,6 +683,18 @@ class _Graph:
             lp = dist.logpdf(value, params)
         return self.apply_obs_meta(lp, meta, reduce)
 
+    def glm_logit_term(self, node, spec, val):
+        """Observation ``node``'s summed likelihood by the Bernoulli-logit
+        GLM kernel; ``spec`` is its entry of ``glm_logit_terms``."""
+        pred, coef, intercept = spec
+        b = val(coef)
+        b0 = None if intercept is None else val(intercept)
+        c = b.shape[0] if b0 is None or b0.ndim == 0 else max(b.shape[0], b0.shape[0])
+        if b0 is not None:
+            b0 = b0.reshape(-1).expand(c)
+        return glm_logit_op.glm_logit(pred.x_of(b), self.values[node.id][1][0],
+                                      b.expand(c, -1), b0)
+
     def meas_obs_term(self, node, val, data):
         """Measurable-lifted observation with its change-of-measure
         Jacobian: x = A^-1 y (matmul) or (y - b) / a (affine)."""
@@ -708,11 +726,13 @@ def _solve_lift(a, value):
 
 
 def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
-               part: str = "all"):
+               part: str = "all", lik_kernel=None):
     """``part``: "all", "prior" (the free RVs' terms: a normalized density
     in unconstrained space) or "likelihood" (the obs/meas_obs terms);
     prior + likelihood == all, term by term. ``pointwise`` returns
-    {obs_id: per-datapoint log-likelihood (C, ...)}, obs not reduced."""
+    {obs_id: per-datapoint log-likelihood (C, ...)}, obs not reduced.
+    ``lik_kernel`` ({obs id: spec} of ``glm_logit_terms``) names the
+    observations that the Bernoulli-logit GLM kernel sums."""
     if part not in ("all", "prior", "likelihood"):
         raise ValueError(f"part must be all|prior|likelihood, got {part!r}")
     ir = graph.ir
@@ -730,7 +750,9 @@ def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
             if tag in ("obs", "meas_obs"):
                 if part == "prior" or node.op[-1].get("likelihood", True) is False:
                     continue
-                if tag == "obs":
+                if lik_kernel and nid in lik_kernel and not pointwise:
+                    term = graph.glm_logit_term(node, lik_kernel[nid], val)
+                elif tag == "obs":
                     term = graph.obs_term(node, val, data, reduce=not pointwise)
                 else:
                     term = graph.meas_obs_term(node, val, data)
@@ -746,6 +768,52 @@ def _make_logp(graph: _Graph, pm: PointMap, pointwise: bool = False,
         return terms if pointwise else total
 
     return logp
+
+
+def glm_logit_terms(ir: IR) -> dict:
+    """The observations of ``ir`` whose summed likelihood the
+    Bernoulli-logit GLM kernel (``ops.glm_logit``) can compute, read from
+    the IR's structure alone: an ``obs`` of a ``Bernoulli(logits=eta)``
+    whose ``eta`` is a det node holding a ``glm.LinearPredictor`` over
+    node references (coefficients of shape (D,), then an optional scalar
+    intercept), whose value is a constant (N,) vector, and which is
+    summed with no weight, mask or censoring. Returns {obs id:
+    (predictor, coefficients' id, intercept's id or None)}."""
+    out = {}
+    for nid, node in ir.nodes.items():
+        if node.op[0] != "obs":
+            continue
+        value, meta = node.op[2], node.op[-1]
+        weight = meta.get("weight", 1.0)
+        if (meta.get("reduce") not in (None, "sum") or meta.get("mask") is not None
+                or meta.get("censored") is not None
+                or not (isinstance(weight, float) and weight == 1.0)
+                or isinstance(value, (str, tuple, dict))):
+            continue
+        target = ir.nodes.get(node.op[1])
+        if target is None or target.op[0] != "rv" or get_dist(target.op[1]).name != "bernoulli":
+            continue
+        logits = target.op[2].get("logits") if set(target.op[2]) == {"logits"} else None
+        eta = ir.nodes.get(logits) if isinstance(logits, str) else None
+        if eta is None or eta.op[0] != "det" or not isinstance(eta.op[1], LinearPredictor):
+            continue
+        pred, args = eta.op[1], eta.op[2]
+        refs = [ir.nodes.get(a) if isinstance(a, str) else None for a in args]
+        n, d = pred.x.shape
+        if (1 <= len(refs) <= 2 and None not in refs and np.shape(value) == (n,)
+                and refs[0].shape == (d,) and (len(refs) == 1 or refs[1].shape in (None, ()))):
+            out[nid] = (pred, args[0], args[1] if len(args) == 2 else None)
+    return out
+
+
+def _lik_kernel(ir: IR, device) -> dict:
+    """The entries of ``glm_logit_terms`` that the kernel runs on
+    ``device``: float32 on a CUDA device, D within its limit."""
+    if device.type != "cuda" or default_dtype() != torch.float32:
+        return {}
+    terms = glm_logit_terms(ir)
+    limit = glm_logit_op.max_d() if terms else 0
+    return {nid: spec for nid, spec in terms.items() if spec[0].x.shape[1] <= limit}
 
 
 def _make_value_and_grad(logp):
@@ -843,12 +911,12 @@ def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
     pm = PointMap.build(rw)
     graph = _Graph(rw, pm, dev, rw.data)
     graph.check_callables(pm)
-    logp = _make_logp(graph, pm)
-    vag = _make_value_and_grad(logp)
-    return CompiledModel(ir=rw, pm=pm, ncp_info=rw.ncp_info, logp=logp,
+    lik_kernel = _lik_kernel(rw, dev)
+    vag = _make_value_and_grad(_make_logp(graph, pm, lik_kernel=lik_kernel))
+    return CompiledModel(ir=rw, pm=pm, ncp_info=rw.ncp_info, logp=_make_logp(graph, pm),
                          value_and_grad=(GraphedValueAndGrad(vag)
                                          if graph.capturable else vag),
-                         device=dev, data=rw.data)
+                         device=dev, data=rw.data, lik_kernel_terms=tuple(sorted(lik_kernel)))
 
 
 def partial_logp(model: CompiledModel, part: str) -> Callable:

@@ -27,6 +27,21 @@ FAMILIES = ("normal", "robust", "logistic", "poisson", "negbin")
 __all__ = ["glm", "glm_linpred", "FAMILIES"]
 
 
+class LinearPredictor:
+    """``x @ b (+ b0)`` of one point over the constant (n, p) design
+    matrix ``x``: the det callable of a GLM's linear predictor. As this
+    type, and not an opaque function, it tells the compiler its structure
+    (``compiler.glm_logit_terms``)."""
+
+    def __init__(self, x):
+        self.x = x
+        self.x_of = const_like(x)
+
+    def __call__(self, b, b0=None):
+        eta = self.x_of(b) @ b
+        return eta if b0 is None else eta + b0
+
+
 def glm(m, X, y, *, family="normal", name="beta", intercept=True,
         coef_scale=None, data_name="y"):
     """Add a GLM to Model ``m``. ``X`` is (n, p) (a 1-d X is one
@@ -58,8 +73,6 @@ def glm(m, X, y, *, family="normal", name="beta", intercept=True,
         coef_scale = 2.5 * sy / sx
     coef_scale = np.broadcast_to(np.asarray(coef_scale, np.float64), (p,))
 
-    x_of = const_like(X.astype(np_dtype()))
-
     m.rv(name, dists.Normal,
          {"mu": np.zeros(p), "sigma": coef_scale.copy()}, shape=(p,))
     deps = [name]
@@ -68,9 +81,7 @@ def glm(m, X, y, *, family="normal", name="beta", intercept=True,
              {"mu": float(y.mean()) if family in ("normal", "robust") else 0.0,
               "sigma": 2.5 * sy})
         deps.append(f"{name}_0")
-        m.det(f"{data_name}_eta", lambda b, b0: x_of(b) @ b + b0, deps)
-    else:
-        m.det(f"{data_name}_eta", lambda b: x_of(b) @ b, deps)
+    m.det(f"{data_name}_eta", LinearPredictor(X.astype(np_dtype())), deps)
     eta = f"{data_name}_eta"
 
     if family in ("normal", "robust"):

@@ -415,12 +415,15 @@ def _unflatten(cls, arrays, device, prefix=""):
     return cls(*vals)
 
 
-def _run_counts(syncs: HostSyncs, iterations):
-    """``last_run`` of a run whose counts ``syncs`` holds."""
+def _run_counts(syncs: HostSyncs, iterations, lik_kernel):
+    """``last_run`` of a run whose counts ``syncs`` holds; ``lik_kernel``:
+    the run's value-and-grad holds the likelihood kernel."""
+    calls = {site: syncs.vag_calls.get(site, 0) for site in VAG_SITES}
     return {"host_syncs": syncs.count,
             "host_syncs_warmup": syncs.count if syncs.warmup is None else syncs.warmup,
             "iterations": iterations,
-            "vag_calls": {site: syncs.vag_calls.get(site, 0) for site in VAG_SITES}}
+            "vag_calls": calls,
+            "vag_calls_lik_kernel": sum(calls.values()) if lik_kernel else 0}
 
 
 def _fit_spans(run):
@@ -458,7 +461,10 @@ class NUTSSampler:
     most recent run counted: its host syncs (``host_syncs``; before its
     first post-warmup iteration, the init search included:
     ``host_syncs_warmup``), its iterations, its value-and-grad calls by
-    site (``vag_calls``, keyed by ``VAG_SITES``) and, with
+    site (``vag_calls``, keyed by ``VAG_SITES``), those of them whose
+    graph holds the Bernoulli-logit GLM kernel
+    (``vag_calls_lik_kernel``: all of them where
+    ``model.lik_kernel_terms`` names a term, else 0) and, with
     tracing on (``utils.profiling.tracing``), its spans by name
     (``spans``: {name: {"count", "total_s", "self_s"}})."""
 
@@ -590,6 +596,11 @@ class NUTSSampler:
             flat0 = self.model.unconstrain(init).to(default_dtype())
             return flat0.expand(num_chains, d).clone()
         return _init_position(gen, (num_chains, d), default_dtype(), dev)
+
+    @property
+    def _lik_kernel(self):
+        """The run's value-and-grad is the model's, with the kernel."""
+        return bool(self.model.lik_kernel_terms) and self.vag_builder is None
 
     def _vag_iw(self, ddata):
         """The run's value-and-grad and interweave step, with its data
@@ -755,7 +766,8 @@ class NUTSSampler:
                                       self._emitter(stream_cb, ddata, p.syncs),
                                       stream_every)
         # a shared warmup's iterations ran on chain 0 before p's
-        self.last_run = _run_counts(p.syncs, len(p.xs[0]) + (self.num_warmup if shared else 0))
+        self.last_run = _run_counts(p.syncs, len(p.xs[0]) + (self.num_warmup if shared else 0),
+                                    self._lik_kernel)
         return self._finish(p.carry, draws, st, ddata, return_unconstrained)
 
     @_fit_spans
@@ -825,7 +837,7 @@ class NUTSSampler:
         draws = torch.cat(draws_parts, dim=1)
         stats = {k: torch.cat([s[k] for s in stats_parts], dim=1)
                  for k in stats_parts[0]}
-        self.last_run = _run_counts(p.syncs, total)
+        self.last_run = _run_counts(p.syncs, total, self._lik_kernel)
         return self._finish(p.carry, draws, stats, ddata, return_unconstrained)
 
     @staticmethod
@@ -863,6 +875,7 @@ class NUTSSampler:
         stats["divergences"] = stats["diverging"].sum(axis=-1)
         stats["host_syncs"] = self.last_run["host_syncs"]
         stats["vag_calls"] = self.last_run["vag_calls"]
+        stats["vag_calls_lik_kernel"] = self.last_run["vag_calls_lik_kernel"]
         _warn_if_rescued(stats["rescues"])
         if return_unconstrained:
             return draws.cpu().numpy(), stats
