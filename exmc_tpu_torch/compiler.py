@@ -412,6 +412,9 @@ class CompiledModel:
     # GLM kernel computes (``glm_logit_terms``); ``logp`` keeps the eager
     # form, which a Hessian differentiates twice
     lik_kernel_terms: tuple = ()
+    # the counters of the model's ``Custom`` terms (a Laplace marginal's
+    # ``marginal.LaplaceCounters``), which its calls update on the device
+    counters: tuple = ()
 
     @property
     def size(self) -> int:
@@ -816,6 +819,17 @@ def _lik_kernel(ir: IR, device) -> dict:
     return {nid: spec for nid, spec in terms.items() if spec[0].x.shape[1] <= limit}
 
 
+def _counters(ir: IR) -> tuple:
+    """The ``counters`` of the ``Custom`` distributions of ``ir``'s RVs,
+    each once."""
+    out = []
+    for node in ir.nodes.values():
+        c = getattr(node.op[1], "counters", None) if node.op[0] == "rv" else None
+        if c is not None and all(c is not o for o in out):
+            out.append(c)
+    return tuple(out)
+
+
 def _make_value_and_grad(logp):
     def eager(flat, data):
         with torch.enable_grad():
@@ -825,12 +839,9 @@ def _make_value_and_grad(logp):
         return lp.detach(), g
 
     def value_and_grad(flat, data=None):
-        if not profiling.TRACING:
+        # a whole span: the log-density may open spans of its own
+        with profiling.span("exmc.vag"):
             return eager(flat, data)
-        token = profiling.leaf_begin("exmc.vag")
-        out = eager(flat, data)
-        profiling.leaf_end("exmc.vag", token)
-        return out
 
     return value_and_grad
 
@@ -916,7 +927,8 @@ def compile_logp(ir: IR, *, ncp: bool = True, rewritten: bool = False,
     return CompiledModel(ir=rw, pm=pm, ncp_info=rw.ncp_info, logp=_make_logp(graph, pm),
                          value_and_grad=(GraphedValueAndGrad(vag)
                                          if graph.capturable else vag),
-                         device=dev, data=rw.data, lik_kernel_terms=tuple(sorted(lik_kernel)))
+                         device=dev, data=rw.data, lik_kernel_terms=tuple(sorted(lik_kernel)),
+                         counters=_counters(rw))
 
 
 def partial_logp(model: CompiledModel, part: str) -> Callable:

@@ -85,7 +85,7 @@ class Custom(Distribution):
 
         Custom(logpdf_fn=lambda x, params, data=None: ...,
                support="real", transform=None, sample_fn=None,
-               align=True)
+               align=True, counters=None)
 
     ``logpdf_fn`` receives batched torch tensors with the leading chain
     axis (see ``base.py``) and returns the elementwise log-density; it
@@ -94,15 +94,21 @@ class Custom(Distribution):
     without the batch-axis alignment, each as it is with its chain axis
     (1 for constants) or 0-d, for a density that reads whole arrays
     (``hmm.hmm_dist``). ``sample_fn(params, shape, generator)`` is
-    optional. A JAX callable cannot be carried over from the JAX
-    package: write the density in torch."""
+    optional. ``counters`` is an object with ``name``, ``reset()`` and
+    ``read()`` that the density updates, such as a Laplace marginal's
+    ``counters`` (``marginal.LaplaceCounters``): the compiled model lists
+    it (``CompiledModel.counters``) and a NUTS run reports its ``read()``
+    under its ``name`` in its stats (``stats["laplace"]``). A JAX
+    callable cannot be carried over from the JAX package: write the
+    density in torch."""
 
     name = "custom"
 
     def __init__(self, logpdf_fn, support="real", transform=None, sample_fn=None,
-                 align=True):
+                 align=True, counters=None):
         self.logpdf_fn = logpdf_fn
         self.align = align
+        self.counters = counters
         self._support = support
         self._transform = transform
         self.sample_fn = sample_fn

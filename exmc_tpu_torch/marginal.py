@@ -29,8 +29,42 @@ explicit multiply-adds (``_mm2``) and each Mobius combine is
 renormalized (projective invariance), without which the products
 overflow f32 within ~10 steps. The combine order differs from XLA's, so
 f32 results differ from the JAX package's in rounding (the tests state
-the tolerances); long-T marginals want float64 (``config.x64``, DESIGN
-D-T39).
+the tolerances).
+
+Precision. Each marginal takes ``dtype``: None computes in
+``config.default_dtype()``, as the rest of the model does; a dtype such
+as ``torch.float64`` runs everything the marginal does in it (the Newton
+loop, the factorization, the solves, the log-determinants, the Takahashi
+diagonal and the implicit backward), casting its inputs up and handing
+logZ, the mode and the variances back in the caller's dtype (that of its
+tensor inputs, else the default). A long-T marginal's surface jitters in
+float32 (DESIGN D-T39: at T = 5000 the std of its third differences
+along a sigma transect is 0.156 nats in f32 against 7.6e-8 in f64), so a
+float32 sampler pairs with a float64 marginal, without switching the
+whole process to float64 (``config.x64``).
+
+Counters. Every marginal counts its calls into ``marginal.counters`` (a
+``LaplaceCounters``): the calls, the live Newton iterations (some
+point's accepted step still moved its mode by more than ``LIVE_TOL``,
+max-norm, relative to 1 + max|s|), and a histogram of each point's
+scaled residual at the returned mode, max|grad loglik - Q s_hat| /
+(1 + max|grad loglik|), in quarter decades. They are device tensors
+updated in place, so a CUDA graph replay, which runs no Python, updates
+them too. ``Custom(..., counters=...)`` hands them to the compiled
+model, and a NUTS run reports them in ``stats["laplace"]``. The spans
+``exmc.laplace.newton`` and ``exmc.laplace.backward`` time eager calls
+(``utils.profiling``).
+
+Step length. Newton starts at s = 0 and takes the damped step
+(Q + W)^-1 (W s + grad loglik) - s, tried at 1, 1/4 and 1/16 of its
+length. Where the floored curvature W is far below the true one (a
+Student-t return far below exp(s)), that step overshoots by orders of
+magnitude, and every try would lower g: the point's Newton would stall
+at s = 0, and with the log-volatility's mode 3.5 or more from 0, 15
+iterations would leave logZ thousands of nats off. So a step longer
+than ``MAX_STEP`` (max-norm over the path) is scaled down to it, keeping
+its direction, before the tries; a shorter step is left as it is, bit
+for bit. The JAX package's iteration takes the step unbounded.
 
 Gradients. With ``implicit_diff=True`` (the default) the mode is a
 ``torch.autograd.Function``: its forward is the Newton loop without a
@@ -53,8 +87,18 @@ import torch
 
 from exmc_tpu_torch.config import default_dtype, np_dtype, prepare_device
 from exmc_tpu_torch.math import cholesky_or_nan, const_like
+from exmc_tpu_torch.ops import tridiag
+from exmc_tpu_torch.utils import profiling
 
 S_CLAMP = 40.0          # |log-vol| beyond this is numerically absurd
+# a Newton iteration is live while some point's accepted step moves its
+# mode by more than this, max-norm, relative to 1 + max|s|
+LIVE_TOL = 1e-6
+# the longest Newton step, max-norm over the path (module docstring)
+MAX_STEP = 2.0
+# the residual histogram's bins: upper edges 10^(k / 4 - 16), k = 0..72;
+# bin 0 holds residuals up to 1e-16, and residuals are capped at 100
+RES_BINS = 73
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +164,8 @@ def _thomas_factor(a, b):
     t = a.shape[-1]
     if t == 1:
         return a, a[..., :0]
+    if tridiag.usable(a, b):
+        return tridiag.tri_factor(a, b)
     b = torch.broadcast_to(b, a[..., :1].shape)
     top = torch.stack([a[..., 1:], torch.broadcast_to(-b * b, a[..., 1:].shape)], dim=-1)
     bottom = torch.stack([torch.ones_like(a[..., 1:]), torch.zeros_like(a[..., 1:])], dim=-1)
@@ -133,6 +179,8 @@ def _thomas_factor(a, b):
 
 def _thomas_solve(delta, ell, rhs):
     """Solve (L D L') x = rhs given the factors of _thomas_factor."""
+    if tridiag.usable(delta, ell, rhs):
+        return tridiag.tri_solve(delta, ell, rhs)
     y = _affine_scan(-ell, rhs[..., 1:], rhs[..., 0])      # y_i = rhs_i - l_i y_{i-1}
     z = y / delta
     # x_i = z_i - l_i x_{i+1}: the same recurrence, reversed, from z_{T-1}
@@ -170,6 +218,71 @@ def _leaves(pp, theta):
     return list(pp) + [theta[k] for k in keys], keys
 
 
+class LaplaceCounters:
+    """The counters of one Laplace marginal (module docstring): per device
+    a float64 buffer of [calls, live Newton iterations, the residual
+    histogram's ``RES_BINS`` counts], which each call updates in place
+    with a few small kernels, inside a CUDA graph capture as in an eager
+    call. A call under a ``torch.func`` transform counts nothing.
+    ``iters_per_call`` is the marginal's fixed Newton count. A sampler
+    reports ``read()`` under ``name`` after a ``reset()``."""
+
+    name = "laplace"
+
+    def __init__(self, iters_per_call):
+        self.iters_per_call = iters_per_call
+        self._bufs = {}
+
+    def _buffer(self, device):
+        """(buffer, the bins' indices) on ``device``, made at the first
+        eager call, never inside a capture."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._bufs:
+            self._bufs[device] = (torch.zeros(2 + RES_BINS, dtype=torch.float64, device=device),
+                                  torch.arange(RES_BINS, dtype=torch.float64, device=device))
+        return self._bufs[device]
+
+    def reset(self):
+        for buf, _ in self._bufs.values():
+            buf.zero_()
+
+    def add(self, live, residual):
+        """Count one call: its ``live`` iterations and each point's scaled
+        ``residual`` at the mode."""
+        if torch._C._functorch.peek_interpreter_stack() is not None:
+            return
+        buf, bins = self._buffer(live.device)
+        with torch.no_grad():
+            r = torch.nan_to_num(residual.reshape(-1).double(), nan=100.0).clamp(1e-300, 100.0)
+            k = torch.ceil(4.0 * (torch.log10(r) + 16.0)).clamp(0.0, RES_BINS - 1.0)
+            buf[:1].add_(1.0)
+            buf[1:2].add_(live)
+            buf[2:].add_((k.unsqueeze(-1) == bins).sum(0))
+
+    def read(self, *others):
+        """This marginal's counts, merged with those of ``others``, copied
+        to the host (one transfer a buffer): {"calls", "newton_iters" (the
+        iterations run, calls times each marginal's count), "live_iters",
+        "mode_residual_p99" (the 99th percentile of the points' scaled
+        residual, rounded up to its bin's edge)}."""
+        group = (self,) + others
+        bufs = [(c, buf) for c in group for buf, _ in c._bufs.values()]
+        if not bufs:
+            return {"calls": 0.0, "newton_iters": 0.0, "live_iters": 0.0,
+                    "mode_residual_p99": 0.0}
+        rows = np.stack([buf.cpu().numpy() for _, buf in bufs])
+        hist = rows[:, 2:].sum(0)
+        above = np.flatnonzero(np.cumsum(hist) >= 0.99 * hist.sum())
+        return {"calls": float(rows[:, 0].sum()),
+                "newton_iters": float(sum(c.iters_per_call * row[0]
+                                          for (c, _), row in zip(bufs, rows))),
+                "live_iters": float(rows[:, 1].sum()),
+                "mode_residual_p99": (10.0 ** (above[0] / 4.0 - 16.0)
+                                      if hist.sum() else 0.0)}
+
+
 class _Engine:
     """Laplace-mode machinery for one latent prior. ``prior`` holds
 
@@ -184,6 +297,7 @@ class _Engine:
     def __init__(self, loglik, T, prior, newton_iters, w_floor):
         self.loglik, self.T, self.prior = loglik, T, prior
         self.newton_iters, self.w_floor = newton_iters, w_floor
+        self.counters = LaplaceCounters(newton_iters)
 
     def theta_in(self, theta):
         return {k: v.unsqueeze(-1) for k, v in theta.items()}
@@ -192,8 +306,13 @@ class _Engine:
         return self.loglik(s, self.theta_in(theta)).sum(-1)
 
     def derivs(self, s, theta):
-        """Elementwise first and second derivatives of the loglik."""
+        """Elementwise first and second derivatives of the loglik: its own
+        ``derivs(s, theta)`` where it has one, else nested ``torch.func``
+        gradients."""
         th = self.theta_in(theta)
+        own = getattr(self.loglik, "derivs", None)
+        if own is not None:
+            return own(s, th)
 
         def total(x):
             return self.loglik(x, th).sum()
@@ -213,12 +332,30 @@ class _Engine:
         return self.derivs(s, theta)[0] - self.prior["qs"](s, pp)
 
     def factor_at(self, s, pp, theta):
-        _, l2 = self.derivs(s, theta)
+        """The factor of Q + W at ``s``, and grad_s loglik there."""
+        l1, l2 = self.derivs(s, theta)
         w = torch.clamp_min(-l2, self.w_floor)
         q_diag, st = self.prior["q"](pp)
-        return self.prior["factor"](q_diag + w, st)
+        return self.prior["factor"](q_diag + w, st), l1
+
+    def count(self, live, s_hat, l1, pp):
+        """Add a call's ``live`` iterations and each point's scaled
+        residual at the mode to the counters."""
+        with torch.no_grad():
+            l1 = l1.detach()
+            r = l1 - self.prior["qs"](s_hat.detach(), tuple(x.detach() for x in pp))
+            inf = float("inf")
+            scaled = (torch.linalg.vector_norm(r, inf, -1)
+                      / (1.0 + torch.linalg.vector_norm(l1, inf, -1)))
+            self.counters.add(live, scaled)
 
     def newton(self, pp, theta, batch):
+        """The mode after ``newton_iters`` damped steps from s = 0, and the
+        number of live iterations (a 0-d tensor)."""
+        with profiling.span("exmc.laplace.newton"):
+            return self._newton(pp, theta, batch)
+
+    def _newton(self, pp, theta, batch):
         dtype, dev = pp[0].dtype, pp[0].device
         s = torch.zeros(*batch, self.T, dtype=dtype, device=dev)
         q_diag, st = self.prior["q"](pp)
@@ -226,15 +363,23 @@ class _Engine:
         alphas = torch.pow(0.25, torch.arange(3, dtype=dtype, device=dev)).reshape(
             (3,) + (1,) * (len(batch) + 1))
         g_cur = self.g_of(s, pp, theta)
+        iterates = [s]
         for _ in range(self.newton_iters):
             l1, l2 = self.derivs(s, theta)
             w = torch.clamp_min(-l2, self.w_floor)     # SoftAbs-lite curvature floor
             fac = self.prior["factor"](q_diag + w, st)
             s_full = self.prior["solve"](fac, w * s + l1)
+            # a step longer than MAX_STEP (max-norm) keeps its direction
+            # at that length: where the floored curvature is far below
+            # the true one, the full step overshoots so far that every
+            # try below would be refused
+            step = s_full - s
+            norm = torch.linalg.vector_norm(step, float("inf"), -1, keepdim=True)
+            step = step * torch.clamp_max(MAX_STEP / norm, 1.0)
             # MONOTONE damping: backtrack the step until g does not
             # decrease (three tries at once), and clamp the iterate; g
             # at the new iterate is the chosen try's
-            cand = torch.clamp(s + alphas * (s_full - s), -S_CLAMP, S_CLAMP)
+            cand = torch.clamp(s + alphas * step, -S_CLAMP, S_CLAMP)
             g_new = self.g_of(cand, pp, theta)
             ok = torch.isfinite(g_new) & (g_new >= g_cur - 1e-3)
             g_cur = torch.where(ok[0], g_new[0], torch.where(ok[1], g_new[1],
@@ -242,7 +387,16 @@ class _Engine:
             ok = ok.unsqueeze(-1)
             s = torch.where(ok[0], cand[0], torch.where(ok[1], cand[1],
                                                         torch.where(ok[2], cand[2], s)))
-        return s
+            iterates.append(s)
+        if len(iterates) == 1:
+            return s, torch.zeros((), dtype=torch.int64, device=dev)
+        # the live iterations from the iterates at once: a handful of
+        # kernels a call rather than a few an iteration
+        path = torch.stack(iterates).detach()
+        inf = float("inf")
+        moved = (torch.linalg.vector_norm(path[1:] - path[:-1], inf, -1)
+                 > LIVE_TOL * (1.0 + torch.linalg.vector_norm(path[1:], inf, -1)))
+        return s, moved.reshape(len(iterates) - 1, -1).any(-1).sum()
 
 
 class _Mode(torch.autograd.Function):
@@ -253,34 +407,40 @@ class _Mode(torch.autograd.Function):
     def forward(ctx, engine, n_pp, keys, batch, *leaves):
         pp, theta = tuple(leaves[:n_pp]), dict(zip(keys, leaves[n_pp:]))
         with torch.no_grad():
-            s_hat = engine.newton(pp, theta, batch)
+            s_hat, live = engine.newton(pp, theta, batch)
         ctx.engine, ctx.n_pp, ctx.keys = engine, n_pp, keys
         ctx.save_for_backward(s_hat, *leaves)
-        return s_hat
+        ctx.mark_non_differentiable(live)
+        return s_hat, live
 
     @staticmethod
-    def backward(ctx, v):
-        s_hat, *leaves = ctx.saved_tensors
-        eng, n_pp = ctx.engine, ctx.n_pp
-        with torch.enable_grad():
-            req = [x.detach().requires_grad_(True) for x in leaves]
-            pp, theta = tuple(req[:n_pp]), dict(zip(ctx.keys, req[n_pp:]))
-            with torch.no_grad():
-                u = eng.prior["solve"](eng.factor_at(s_hat, pp, theta), v)
-            grads = torch.autograd.grad(eng.grad_g(s_hat, pp, theta), req,
-                                        grad_outputs=u, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    def backward(ctx, v, _):
+        with profiling.span("exmc.laplace.backward"):
+            s_hat, *leaves = ctx.saved_tensors
+            eng, n_pp = ctx.engine, ctx.n_pp
+            with torch.enable_grad():
+                req = [x.detach().requires_grad_(True) for x in leaves]
+                pp, theta = tuple(req[:n_pp]), dict(zip(ctx.keys, req[n_pp:]))
+                with torch.no_grad():
+                    u = eng.prior["solve"](eng.factor_at(s_hat, pp, theta)[0], v)
+                grads = torch.autograd.grad(eng.grad_g(s_hat, pp, theta), req,
+                                            grad_outputs=u, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
         return (None, None, None, None, *grads)
 
 
-def _as_points(pp, theta, pp_event):
-    """Hyperparameters and theta's leaves as tensors of one dtype and
-    device (the first tensor's device, else ``"cuda"``), with their
-    broadcast batch shape; ``pp_event[i]`` is the number of event axes
-    of hyperparameter i (1 for AR(p)'s phis)."""
-    dtype = default_dtype()
+def _as_points(pp, theta, pp_event, dtype=None):
+    """Hyperparameters and theta's leaves as tensors of one dtype (``dtype``,
+    None: the default) and device (the first tensor's device, else
+    ``"cuda"``), with their broadcast batch shape and the caller's dtype
+    (that of the first floating tensor, else the default);
+    ``pp_event[i]`` is the number of event axes of hyperparameter i (1
+    for AR(p)'s phis)."""
     found = [x for x in list(pp) + list(theta.values()) if isinstance(x, torch.Tensor)]
     dev = found[0].device if found else prepare_device(None)
+    edge = next((x.dtype for x in found if x.is_floating_point()), default_dtype())
+    if dtype is None:
+        dtype = edge = default_dtype()
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -289,26 +449,29 @@ def _as_points(pp, theta, pp_event):
     theta = {k: t(v) for k, v in theta.items()}
     batch = torch.broadcast_shapes(*(x.shape[:x.ndim - k] for x, k in zip(pp, pp_event)),
                                    *(v.shape for v in theta.values()))
-    return pp, theta, tuple(batch)
+    return pp, theta, tuple(batch), edge
 
 
 def _make_marginal(loglik, T, prior, newton_iters, w_floor, implicit_diff, log_det,
-                   pp_event):
+                   pp_event, dtype):
     engine = _Engine(loglik, T, prior, newton_iters, w_floor)
 
     def marginal(pp, theta):
-        pp, theta, batch = _as_points(pp, theta, pp_event)
+        pp, theta, batch, edge = _as_points(pp, theta, pp_event, dtype)
         if implicit_diff:
             leaves, keys = _leaves(pp, theta)
-            s_hat = _Mode.apply(engine, len(pp), keys, batch, *leaves)
+            s_hat, live = _Mode.apply(engine, len(pp), keys, batch, *leaves)
         else:
-            s_hat = engine.newton(pp, theta, batch)
-        fac = engine.factor_at(s_hat, pp, theta)
+            s_hat, live = engine.newton(pp, theta, batch)
+        fac, l1 = engine.factor_at(s_hat, pp, theta)
+        engine.count(live, s_hat, l1, pp)
         # logZ = g_hat + 1/2 logdet Q - 1/2 logdet(Q + W); the
         # (2 pi)^{+-T/2} prior/Laplace constants cancel
         logZ = engine.g_of(s_hat, pp, theta) + log_det(pp) - 0.5 * torch.log(fac[0]).sum(-1)
-        return logZ, s_hat, prior["takahashi"](fac)
+        out = logZ, s_hat, prior["takahashi"](fac)
+        return out if edge == pp[0].dtype else tuple(x.to(edge) for x in out)
 
+    marginal.counters = engine.counters
     return marginal
 
 
@@ -328,7 +491,8 @@ def _tri_prior(tri, neg_half_quad):
             "neg_half_quad": neg_half_quad, "qs": qs}
 
 
-def make_grw_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=True):
+def make_grw_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=True,
+                      dtype=None):
     """Laplace-marginal log-density for
 
         s ~ GaussianRandomWalk(sigma) over T steps,
@@ -338,12 +502,14 @@ def make_grw_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=Tr
     closed over). Returns ``marginal(sigma, theta) -> (logZ, s_hat,
     var_hat)``: logZ (...), the mode (..., T) and its marginal
     variances diag((Q + W)^-1) (..., T), for sigma of shape (...).
-    Newton runs a FIXED ``newton_iters`` iterations; see the module
-    docstring for batching and for ``implicit_diff``."""
+    Newton runs a FIXED ``newton_iters`` iterations from s = 0; see the
+    module docstring for batching, ``implicit_diff``, ``dtype``, the
+    bounded step and the ``counters`` the returned function carries."""
 
     def tri(pp):
         sigma = pp[0]
-        return grw_precision_diag(T, sigma), (-1.0 / (sigma * sigma)).unsqueeze(-1)
+        return (grw_precision_diag(T, sigma, dtype=sigma.dtype),
+                (-1.0 / (sigma * sigma)).unsqueeze(-1))
 
     def neg_half_quad(s, pp):
         # -(1/2) s'Qs = -(1/2) ||D s||^2 / sigma^2
@@ -352,15 +518,17 @@ def make_grw_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=Tr
 
     base = _make_marginal(loglik, T, _tri_prior(tri, neg_half_quad), newton_iters,
                           w_floor, implicit_diff,
-                          lambda pp: -T * torch.log(pp[0]), (0,))   # |D'D| = 1
+                          lambda pp: -T * torch.log(pp[0]), (0,), dtype)   # |D'D| = 1
 
     def marginal(sigma, theta):
         return base((sigma,), theta)
 
+    marginal.counters = base.counters
     return marginal
 
 
-def make_ar1_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=True):
+def make_ar1_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=True,
+                      dtype=None):
     """Laplace marginal for a STATIONARY AR(1) latent path:
 
         s_1 ~ N(0, sigma^2 / (1 - phi^2)),
@@ -389,11 +557,12 @@ def make_ar1_marginal(loglik, T, newton_iters=25, w_floor=1e-3, implicit_diff=Tr
     base = _make_marginal(loglik, T, _tri_prior(tri, neg_half_quad), newton_iters,
                           w_floor, implicit_diff,
                           lambda pp: 0.5 * torch.log1p(-pp[1] * pp[1]) - T * torch.log(pp[0]),
-                          (0, 0))
+                          (0, 0), dtype)
 
     def marginal(sigma, phi, theta):
         return base((sigma, phi), theta)
 
+    marginal.counters = base.counters
     return marginal
 
 
@@ -498,7 +667,7 @@ def _arp_whitener_bands(phis, sigma, T):
     from exmc_tpu_torch.kalman import ar_ssm
 
     p = phis.shape[-1]
-    C = cholesky_or_nan(ar_ssm(phis, sigma).P0)
+    C = cholesky_or_nan(ar_ssm(phis, sigma, dtype=phis.dtype).P0)
     eye = torch.eye(p, dtype=phis.dtype, device=phis.device)
     Cinv = torch.linalg.solve_triangular(C, torch.broadcast_to(eye, C.shape), upper=False)
     row = torch.cat([-phis.flip(-1), torch.ones_like(phis[..., :1])], dim=-1) / sigma.unsqueeze(-1)
@@ -534,7 +703,8 @@ def _apply_a(c, s, p):
     return out
 
 
-def make_arp_marginal(loglik, T, p, newton_iters=25, w_floor=1e-3, implicit_diff=True):
+def make_arp_marginal(loglik, T, p, newton_iters=25, w_floor=1e-3, implicit_diff=True,
+                      dtype=None):
     """Laplace marginal for a STATIONARY AR(p) latent path (banded
     precision, bandwidth p):
 
@@ -582,11 +752,12 @@ def make_arp_marginal(loglik, T, p, newton_iters=25, w_floor=1e-3, implicit_diff
              "takahashi": lambda fac: _banded_takahashi_diag(*fac),
              "neg_half_quad": neg_half_quad, "qs": qs}
     base = _make_marginal(loglik, T, prior, newton_iters, w_floor, implicit_diff,
-                          lambda pp: bands(pp)[2], (0, 1))
+                          lambda pp: bands(pp)[2], (0, 1), dtype)
 
     def marginal(sigma, phis, theta):
         return base((sigma, phis), theta)
 
+    marginal.counters = base.counters
     return marginal
 
 
@@ -606,26 +777,42 @@ def _sv_loglik(r):
                 - 0.5 * torch.log(nu * math.pi) - s
                 - 0.5 * (nu + 1.0) * torch.log1p(z * z / nu))
 
+    def derivs(s, theta):
+        # with q = r^2 / (r^2 + nu e^{2s}), the share of the scaled return
+        # in the log1p term: d/ds = (nu + 1) q - 1 and
+        # d2/ds2 = -2 (nu + 1) q (1 - q); a few kernels where nested
+        # autograd takes ~75, and no overflow at the clamp (|s| <= 40)
+        nu = theta["nu"]
+        r2 = r_of(s) ** 2
+        q = r2 / (r2 + nu * torch.exp(2.0 * s))
+        nu1 = nu + 1.0
+        return nu1 * q - 1.0, -2.0 * nu1 * q * (1.0 - q)
+
+    loglik.derivs = derivs
     return loglik
 
 
-def sv_marginal_model(r, newton_iters=25, implicit_diff=True):
+def sv_marginal_model(r, newton_iters=25, implicit_diff=True, dtype=None):
     """The suite's SV model with the latent path MARGINALIZED: the free
     RVs are (sigma, nu), with the suite's priors (sigma ~
     Exponential(50), nu ~ Exponential(0.1)), and the likelihood is the
     Laplace marginal, a ``Custom`` term NUTS differentiates through (a
     2-d sampling problem at any T). Returns the IR; sample it with
-    ``sample(ir, ncp=False)``, in float64 at long T (``config.x64``)."""
+    ``sample(ir, ncp=False)``. At long T give the marginal float64
+    (``dtype=torch.float64``) under a float32 sampler, or run the whole
+    process in float64 (``config.x64``)."""
     from exmc_tpu_torch import Builder, dists
 
     marginal = make_grw_marginal(_sv_loglik(np.asarray(r)), len(r),
-                                 newton_iters=newton_iters, implicit_diff=implicit_diff)
+                                 newton_iters=newton_iters, implicit_diff=implicit_diff,
+                                 dtype=dtype)
 
     def logpdf(_value, params):
         logZ, _, _ = marginal(params["sigma"], {"nu": params["nu"]})
         return logZ
 
-    lik = dists.Custom(logpdf_fn=logpdf, support="real", align=False)
+    lik = dists.Custom(logpdf_fn=logpdf, support="real", align=False,
+                       counters=marginal.counters)
     ir = Builder.new_ir()
     ir = Builder.rv(ir, "sigma", dists.Exponential, {"lambda": 50.0})
     ir = Builder.rv(ir, "nu", dists.Exponential, {"lambda": 0.1})

@@ -466,7 +466,10 @@ class NUTSSampler:
     (``vag_calls_lik_kernel``: all of them where
     ``model.lik_kernel_terms`` names a term, else 0) and, with
     tracing on (``utils.profiling.tracing``), its spans by name
-    (``spans``: {name: {"count", "total_s", "self_s"}})."""
+    (``spans``: {name: {"count", "total_s", "self_s"}}). A model with
+    counters (``model.counters``, such as a Laplace marginal's) adds each
+    one's ``read()`` over the run under its ``name`` (counters of one
+    name merged), as ``stats["laplace"]``."""
 
     model: CompiledModel
     num_warmup: int = DEFAULT_OPTS["num_warmup"]
@@ -596,6 +599,12 @@ class NUTSSampler:
             flat0 = self.model.unconstrain(init).to(default_dtype())
             return flat0.expand(num_chains, d).clone()
         return _init_position(gen, (num_chains, d), default_dtype(), dev)
+
+    def _reset_counters(self):
+        """Zero the model's counters, which the run's stats read at its
+        end."""
+        for c in self.model.counters:
+            c.reset()
 
     @property
     def _lik_kernel(self):
@@ -755,6 +764,7 @@ class NUTSSampler:
         constrained values and (num_chains,) stats."""
         if self.model.size == 0:
             return {}, {"note": "model has no free parameters"}
+        self._reset_counters()
         ddata = None if data is None else self.model.device_data(data)
         shared = self.shared_warmup and warm_start is None
         if shared:
@@ -790,6 +800,7 @@ class NUTSSampler:
                              "shared_warmup=True runs through run()")
         if self.model.size == 0:
             return {}, {"note": "model has no free parameters"}
+        self._reset_counters()
         ddata = None if data is None else self.model.device_data(data)
         dev = self.model.device
         if resume_from is None:
@@ -876,6 +887,9 @@ class NUTSSampler:
         stats["host_syncs"] = self.last_run["host_syncs"]
         stats["vag_calls"] = self.last_run["vag_calls"]
         stats["vag_calls_lik_kernel"] = self.last_run["vag_calls_lik_kernel"]
+        for name in dict.fromkeys(c.name for c in self.model.counters):
+            group = [c for c in self.model.counters if c.name == name]
+            stats[name] = group[0].read(*group[1:])
         _warn_if_rescued(stats["rescues"])
         if return_unconstrained:
             return draws.cpu().numpy(), stats

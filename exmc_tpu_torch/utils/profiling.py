@@ -8,7 +8,10 @@ energy, logp) already come out of every run. This module adds:
   pipeline's spans (``exmc.fit``, ``exmc.init``, ``exmc.warmup``,
   ``exmc.draws``, ``exmc.finish``, ``exmc.tree``, ``exmc.vag``,
   ``exmc.sync``, ``exmc.adapt``, ``exmc.eps_search``, ``exmc.rescue``,
-  ``exmc.recovery``) time themselves on the host clock, and each run's
+  ``exmc.recovery``), and a Laplace marginal's (``exmc.laplace.newton``,
+  ``exmc.laplace.backward``: the Newton loop and the implicit backward,
+  inside an eager ``exmc.vag``; a CUDA graph's replay runs neither),
+  time themselves on the host clock, and each run's
   spans, reduced by name to ``count``, ``total_s`` and ``self_s`` (the
   time no child span covers), land in ``NUTSSampler.last_run["spans"]``
   (``tracing(True, keep=True)`` also keeps each span's start, end and
