@@ -21,8 +21,14 @@ Phases, each printing JSON lines:
   4. main    — the bench pipeline (eight schools, 1024 chains, superchain
                K=32, 200+500 iterations, pooled adaptation, ensemble
                rescue, max_depth 10) with its posterior checked against
-               the statistical target, and the compiled model checked
-               against the same model on the CPU;
+               the statistical target, its leaves run by the leaf kernel,
+               and the compiled model checked against the same model on
+               the CPU; then, in the ops phase's lines, the NUTS tree's
+               leaf kernel (``nuts.leaf.LeafKernel``) against the plain
+               leaf over eight leaves at eight schools' and covertype's
+               (chains, d), 1024 x 10 and 64 x 55, with its launch count,
+               and one launch timed beside its bound and the plain
+               leaf's time;
   5. pool    — one spawn pool of POOL_WORKERS processes sharing the card,
                each taking the next task, longest first (POOL_COST_S):
                * suite: the seven-model suite under the JAX package's
@@ -134,6 +140,8 @@ from exmc_tpu_torch import _build, compile_logp
 from exmc_tpu_torch import bench
 from exmc_tpu_torch.benchmarks import apps, engines, entry, families, post, suite, validation
 from exmc_tpu_torch.benchmarks import parallel
+from exmc_tpu_torch.nuts import leaf
+from exmc_tpu_torch.nuts.leapfrog import kinetic_energy, make_metric
 from exmc_tpu_torch.ops import glm_logit
 from exmc_tpu_torch.ops.fused_leapfrog import (
     fused_leapfrog_gaussian,
@@ -151,6 +159,8 @@ OPS_SHAPES = [(8, 4, 16), (16, 128, 64), (1024, 256, 32), (8192, 256, 2048)]
 # by summation depth)
 GLM_SHAPE = (64, 581_012, 54)
 GLM_TOL = 1e-5
+# the NUTS leaf kernel's (chains, d): eight schools' and covertype's cells
+LEAF_SHAPES = [(1024, 10), (64, 55)]
 OPS_EPS = 0.05
 TOL_QP = 1e-4          # |kernel - plain| on q and p (same f32 steps, no FMA)
 TOL_LOGP_ABS = 1e-3    # logp sums d terms in another order than torch.sum
@@ -397,6 +407,105 @@ def phase_glm_kernel():
     return row
 
 
+def leaf_inputs(c, d, seed):
+    """A subtree's start at (c, d) in float32 on a standard normal target,
+    per-chain inverse masses in [0.5, 2], and its value-and-grad."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    metric = make_metric(0.5 + 1.5 * torch.rand(c, d, generator=g, device="cuda"))
+    z0 = torch.randn(c, d, generator=g, device="cuda")
+    r0 = torch.randn(c, d, generator=g, device="cuda") / metric.chol_inv
+
+    def vag(q):
+        return -0.5 * torch.sum(q * q, dim=-1), -q
+
+    logp0, g0 = vag(z0)
+    joint0 = logp0 - kinetic_energy(metric, r0)
+    eps = (0.2 + 0.6 * torch.rand(c, generator=g, device="cuda"))[:, None]
+    logu = -torch.empty(c, 8, device="cuda").exponential_(generator=g)
+    active = torch.ones(c, dtype=torch.bool, device="cuda")
+    return vag, metric, eps, z0, r0, g0, joint0, logu, active
+
+
+def time_leaf_step(k, logp, g, reps=200):
+    """(median device ms of one launch of odd leaf 7 from the profiler's
+    kernel events, mean ms between CUDA events recorded around each
+    launch, which adds the launch's path from the host); every chain is
+    set live before each launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for e0, e1 in zip(starts, ends):
+            k.live.fill_(True)
+            e0.record()
+            k.step(7, logp, g, has_next=True)
+            e1.record()
+        torch.cuda.synchronize()
+    device_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and "leaf_step" in e.name()]
+    issue_ms = float(np.mean([a.elapsed_time(b) for a, b in zip(starts, ends)][10:]))
+    return (float(np.median(device_ns)) / 1e6 if device_ns else None), issue_ms
+
+
+def phase_leaf_kernel():
+    """The NUTS tree's leaf kernel against the plain leaf at eight
+    schools' and covertype's (chains, d): leaves 0..7 of one subtree, each
+    from the kernel's state before it. The fields no dot product feeds
+    must be bit-equal, the masks equal; joint and lsw lie within 4 d ulps
+    of the magnitudes the kinetic energy adds. Then one launch of an odd
+    leaf that checks three slots, timed beside its bound and the plain
+    leaf's time (``time_leaf_step``)."""
+    t0 = time.perf_counter()
+    rows = []
+    for i, (c, d) in enumerate(LEAF_SHAPES):
+        leaf.LeafKernel.launches = 0
+        vag, metric, eps, z0, r0, g0, joint0, logu, active = leaf_inputs(c, d, 21 + i)
+        k = leaf.LeafKernel(metric, eps, z0, r0, g0, joint0, logu, active, 5)
+        exact, worst = True, 0.0
+        for n in range(8):
+            st = leaf.Subtree(*(t.clone() for t in k.subtree()))
+            ckpt, live = k.ckpt.clone(), k.live.clone()
+            want = leaf.leaf_plain(vag, metric, eps, n, st, joint0, logu[:, n], live, ckpt, 5)
+            k.step(n, *vag(k.z_in), has_next=n < 7)
+            got = k.subtree()
+            for name in ("n", "z", "r", "g", "r_first", "z_prop", "logp_prop", "g_prop", "rho",
+                         "turning", "diverging"):
+                exact &= torch.equal(getattr(got, name), getattr(want, name))
+            exact &= torch.equal(k.ckpt, ckpt) and torch.equal(
+                k.live, active & ~want.turning & ~want.diverging)
+            bound = 4 * d * torch.finfo(torch.float32).eps * (
+                1 + joint0.abs() + want.joint_prop.abs() + kinetic_energy(metric, want.r))
+            for name in ("joint_prop", "lsw"):
+                a, b = getattr(got, name), getattr(want, name)
+                err = torch.where(a == b, 0.0, (a - b).abs() / bound)
+                worst = max(worst, float(torch.nan_to_num(err, nan=np.inf).max()))
+        launches = leaf.LeafKernel.launches
+        logp, g = vag(k.z_in)
+        kernel_ms, issue_ms = time_leaf_step(k, logp, g)
+        st = leaf.Subtree(*(t.clone() for t in k.subtree()))
+        live = torch.ones(c, dtype=torch.bool, device="cuda")
+        plain_ms = time_cuda(lambda: leaf.leaf_plain(lambda q: (logp, g), metric, eps, 7, st,
+                                                     joint0, logu[:, 7], live, k.ckpt, 5),
+                             reps=50)
+        # each (C, d) value read or written once: p_half, g, z_in, r, rho in;
+        # z, r, g, rho, p_half, z_in, z_prop, g_prop out; 3 slots x 3 rows
+        # of checkpoints in; and ~12 per-chain scalars
+        nbytes = 4 * c * (d * (13 + 9) + 12)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        row = {"shape_c_d": [c, d], "bit_equal": exact, "max_err_over_bound": worst,
+               "ms": kernel_ms, "issue_ms": issue_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "share_of_bound": bound_ms / kernel_ms if kernel_ms else None, "library_ms": None,
+               "launches": launches}
+        emit({"phase": "ops", "kernel": "nuts_leaf", **row})
+        if not exact or not worst <= 1.0:
+            fail(f"nuts_leaf at {(c, d)} disagrees with the plain leaf: {row}")
+        rows.append(row)
+    return {"rows": rows, "seconds": time.perf_counter() - t0}
+
+
 def check_model_on_card():
     """The compiled model on the card against the same model on the CPU,
     at 16 random flat points."""
@@ -416,9 +525,11 @@ def check_model_on_card():
 def phase_main(num_warmup, num_samples):
     model_err = check_model_on_card()
     fused_leapfrog_gaussian.launches = 0
+    leaf.LeafKernel.launches = 0
     res = bench.run(device="cuda", num_chains=1024, num_warmup=num_warmup,
                     num_samples=num_samples, num_superchains=32)
-    main_launches = {"fused_leapfrog_gaussian": fused_leapfrog_gaussian.launches}
+    main_launches = {"fused_leapfrog_gaussian": fused_leapfrog_gaussian.launches,
+                     "nuts_leaf": leaf.LeafKernel.launches}
     det = res["detail"]
     out = {"phase": "main", "ess_per_s": res["value"], **det,
            "model_vs_cpu_max_abs_err": model_err,
@@ -435,6 +546,8 @@ def phase_main(num_warmup, num_samples):
     for ok, name in checks:
         if not ok:
             fail(f"main path: {name} out of bounds ({json.dumps(det)})")
+    if main_launches["nuts_leaf"] == 0:
+        fail("main path: the NUTS leaf kernel never ran")
     return main_launches
 
 
@@ -695,6 +808,9 @@ def main(argv=None):
              f"expected {len(OPS_SHAPES)}")
     glm_row = phase_glm_kernel()
     main_launches = phase_main(args.warmup, args.draws)
+    # after the main path: the leaf kernel's timing runs a profiler
+    # session, which can slow this process's later launches (PERF.md §7)
+    leaf_rows = phase_leaf_kernel()
     with tempfile.TemporaryDirectory() as workdir:
         group, nccl = start_parallel(workdir)
         try:
@@ -744,6 +860,15 @@ def main(argv=None):
         "launches_path": "exmc_tpu_torch.ops.glm_logit at covertype's shape (its launches "
                          "on the sampler paths are CUDA graph replays, which run no Python)",
         **glm_row,
+    }, {
+        "name": "nuts_leaf",
+        "route": "cuda",
+        "source": "exmc_tpu_torch/csrc/nuts_leaf.cu",
+        "replaces": None,
+        "launches_path": "exmc_tpu_torch.nuts.leaf.LeafKernel at "
+                         f"{len(LEAF_SHAPES)} shapes, 8 leaves each",
+        "main_path_launches": main_launches["nuts_leaf"],
+        **leaf_rows,
     }], "seconds_total": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

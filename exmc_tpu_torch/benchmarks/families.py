@@ -49,7 +49,8 @@ device memory); the tests run the same code on the CPU at small sizes.
   battery of ``tests/test_exact_invariance.py`` (8192 chains, R = 4
   replicates of K = 8 transitions, Holm alpha 0.005) on the port's tree
   on the device, on the isotropic and the correlated Gaussian. Gate: no
-  Holm rejection on either.
+  Holm rejection on either, and on the card the leaves run by the leaf
+  kernel (``nuts/leaf.py``).
 
     python -m exmc_tpu_torch.benchmarks.families [--task TASK ...] [--device cpu]
 """
@@ -698,7 +699,10 @@ def check_invariance(device="cuda", n_chains=8192, replicates=4, k_steps=8):
                 fails.append(f"{name}: Holm rejects, combined p {out[name]['combined_p']}")
             if not all(0.5 < a < 1.0 for a in accs):
                 fails.append(f"{name}: accept {accs}")
-    out.update(wall_s=m.wall_s, peak_mb=m.peak_mb, host_syncs=syncs.count)
+    out.update(wall_s=m.wall_s, peak_mb=m.peak_mb, host_syncs=syncs.count,
+               leaf_kernel_leaves=syncs.leaf_kernel)
+    if dev.type == "cuda" and syncs.leaf_kernel == 0:
+        fails.append("the tree's leaves did not run through the leaf kernel")
     return _result("tree:invariance", out, fails)
 
 

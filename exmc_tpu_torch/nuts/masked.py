@@ -17,21 +17,31 @@ from exmc_tpu_torch.utils import profiling
 class HostSyncs:
     """Counts one run's host syncs of the masked loops (``count``), the
     count when its first post-warmup iteration began (``warmup``; None
-    until then), and its value-and-grad calls by site (``vag_calls``;
-    ``counted`` wraps a site's value-and-grad)."""
+    until then), its value-and-grad calls by site (``vag_calls``;
+    ``counted`` wraps a site's value-and-grad) and the tree's leaves that
+    the leaf kernel ran (``leaf_kernel``)."""
 
     def __init__(self):
         self.count = 0
         self.warmup = None
         self.vag_calls = {}
+        self.leaf_kernel = 0
 
     def any(self, mask) -> bool:
         """True if any chain is still active (one device -> host sync)."""
+        return self._read(mask.any)
+
+    def flag(self, flag) -> bool:
+        """The one-element device tensor ``flag`` as a bool (one device ->
+        host sync)."""
+        return self._read(flag.item)
+
+    def _read(self, read):
         self.count += 1
         if not profiling.TRACING:
-            return bool(mask.any())
+            return bool(read())
         token = profiling.leaf_begin("exmc.sync")
-        out = bool(mask.any())
+        out = bool(read())
         profiling.leaf_end("exmc.sync", token)
         return out
 

@@ -423,7 +423,8 @@ def _run_counts(syncs: HostSyncs, iterations, lik_kernel):
             "host_syncs_warmup": syncs.count if syncs.warmup is None else syncs.warmup,
             "iterations": iterations,
             "vag_calls": calls,
-            "vag_calls_lik_kernel": sum(calls.values()) if lik_kernel else 0}
+            "vag_calls_lik_kernel": sum(calls.values()) if lik_kernel else 0,
+            "leaf_kernel_leaves": syncs.leaf_kernel}
 
 
 def _fit_spans(run):
@@ -464,7 +465,9 @@ class NUTSSampler:
     site (``vag_calls``, keyed by ``VAG_SITES``), those of them whose
     graph holds the Bernoulli-logit GLM kernel
     (``vag_calls_lik_kernel``: all of them where
-    ``model.lik_kernel_terms`` names a term, else 0) and, with
+    ``model.lik_kernel_terms`` names a term, else 0), the tree's leaves
+    that the leaf kernel ran (``leaf_kernel_leaves``; ``nuts/leaf.py``)
+    and, with
     tracing on (``utils.profiling.tracing``), its spans by name
     (``spans``: {name: {"count", "total_s", "self_s"}}). A model with
     counters (``model.counters``, such as a Laplace marginal's) adds each
@@ -824,6 +827,7 @@ class NUTSSampler:
             warmup = int(arrays.get("host_syncs_warmup", -1))
             p.syncs.warmup = None if warmup < 0 else warmup
             p.syncs.vag_calls = {k: int(arrays.get(f"vag_calls.{k}", 0)) for k in VAG_SITES}
+            p.syncs.leaf_kernel = int(arrays.get("leaf_kernel_leaves", 0))
             done = int(arrays["done"])
             draws_parts = [torch.as_tensor(arrays["draws"], device=dev)]
             stats_parts = [{k[5:]: torch.as_tensor(v, device=dev)
@@ -854,8 +858,8 @@ class NUTSSampler:
     @staticmethod
     def _save_chunk_state(path, p: _Pipeline, done, draws_parts, stats_parts):
         """The carry, the generator's state, the run's counts (host syncs,
-        value-and-grad calls), the progress index and the draws and stats
-        so far, in one .npz."""
+        value-and-grad calls, leaf-kernel leaves), the progress index and
+        the draws and stats so far, in one .npz."""
         payload = {f"carry.{k}": (v.cpu().numpy() if torch.is_tensor(v)
                                   else np.asarray(v))
                    for k, v in _flatten(p.carry).items()}
@@ -865,6 +869,7 @@ class NUTSSampler:
             -1 if p.syncs.warmup is None else p.syncs.warmup)
         for k in VAG_SITES:
             payload[f"vag_calls.{k}"] = np.asarray(p.syncs.vag_calls.get(k, 0))
+        payload["leaf_kernel_leaves"] = np.asarray(p.syncs.leaf_kernel)
         payload["done"] = np.asarray(done)
         payload["draws"] = torch.cat(draws_parts, dim=1).cpu().numpy()
         for k in stats_parts[0]:
@@ -887,6 +892,7 @@ class NUTSSampler:
         stats["host_syncs"] = self.last_run["host_syncs"]
         stats["vag_calls"] = self.last_run["vag_calls"]
         stats["vag_calls_lik_kernel"] = self.last_run["vag_calls_lik_kernel"]
+        stats["leaf_kernel_leaves"] = self.last_run["leaf_kernel_leaves"]
         for name in dict.fromkeys(c.name for c in self.model.counters):
             group = [c for c in self.model.counters if c.name == name]
             stats[name] = group[0].read(*group[1:])

@@ -26,6 +26,8 @@ popcount(n)-ctz(n+1). Every chain still building a subtree is at the
 same leaf (all start at leaf 0 of the same doubling and advance
 together), so n, the slot and the checked range are host integers, and
 the odd leaves' scratch-row write of the JAX kernel is not needed.
+A leaf's arithmetic is in ``leaf.py``: one CUDA kernel launch a leaf on
+the card under a diagonal metric, PyTorch operations otherwise.
 
 Randomness comes from a ``torch.Generator``, or is injected through
 ``rand`` (for lockstep tests against the JAX kernel):
@@ -34,20 +36,12 @@ Randomness comes from a ``torch.Generator``, or is injected through
 (C, max_depth, 2**(max_depth-1)) log-uniforms.
 """
 
-import math
 from typing import NamedTuple
 
 import torch
 
-from exmc_tpu_torch.config import DIVERGENCE_THRESHOLD
-from exmc_tpu_torch.nuts.leapfrog import (
-    Metric,
-    kinetic_energy,
-    leapfrog,
-    sample_momentum,
-    velocity,
-    velocity_rows,
-)
+from exmc_tpu_torch.nuts import leaf
+from exmc_tpu_torch.nuts.leapfrog import Metric, kinetic_energy, sample_momentum, velocity
 from exmc_tpu_torch.nuts.masked import HostSyncs, keep
 
 
@@ -62,134 +56,36 @@ def _is_turning(metric, r_minus, r_plus, rho):
             | (_dots(rho, velocity(metric, r_plus)) <= 0.0))
 
 
-def _iterative_uturn_check(metric, r_new, rho_through, ckpt, idx_min, idx_max):
-    """U-turn check of every power-of-two sub-trajectory that ends at the
-    current (odd) leaf: checkpoint slots idx_min..idx_max (host ints).
-
-    For the sub-trajectory closing at slot i, its midpoint is the
-    checkpoint at slot i+1, so Stan's extended checks are available:
-      (a) full:  rho[s..n],             boundaries (r_s, r_n)
-      (b) left:  rho[s..mid-1] + r_mid, boundaries (r_s, r_mid)
-      (c) right: rho[mid..n] + r_{mid-1}, boundaries (r_{mid-1}, r_n)
-    At i == idx_max (the leaf pair) all three collapse to (a)."""
-    v_new = velocity(metric, r_new).unsqueeze(1)
-    rho_n = rho_through.unsqueeze(1)
-    ck_r = ckpt[:, idx_min:idx_max + 1, 0]
-    ck_rho = ckpt[:, idx_min:idx_max + 1, 1]
-    rho_sub = rho_n - ck_rho + ck_r
-    turn = ((_dots(rho_sub, velocity_rows(metric, ck_r)) <= 0.0)
-            | (_dots(rho_sub, v_new) <= 0.0)).any(-1)
-    if idx_max > idx_min:
-        lo_r = ckpt[:, idx_min:idx_max, 0]
-        lo_rho = ckpt[:, idx_min:idx_max, 1]
-        nx_r = ckpt[:, idx_min + 1:idx_max + 1, 0]
-        nx_rho = ckpt[:, idx_min + 1:idx_max + 1, 1]
-        nx_prev = ckpt[:, idx_min + 1:idx_max + 1, 2]
-        rho_left = nx_rho - lo_rho + lo_r
-        turn_b = ((_dots(rho_left, velocity_rows(metric, lo_r)) <= 0.0)
-                  | (_dots(rho_left, velocity_rows(metric, nx_r)) <= 0.0))
-        rho_right = rho_n - nx_rho + nx_r + nx_prev
-        turn_c = ((_dots(rho_right, velocity_rows(metric, nx_prev)) <= 0.0)
-                  | (_dots(rho_right, v_new) <= 0.0))
-        turn = turn | (turn_b | turn_c).any(-1)
-    return turn
-
-
-class _Subtree(NamedTuple):
-    n: torch.Tensor           # leaves built (C,) int32
-    z: torch.Tensor           # far boundary of the subtree
-    r: torch.Tensor
-    g: torch.Tensor
-    r_first: torch.Tensor     # momentum at the leaf next to the old trajectory
-    z_prop: torch.Tensor
-    logp_prop: torch.Tensor
-    g_prop: torch.Tensor
-    joint_prop: torch.Tensor
-    lsw: torch.Tensor         # subtree multinomial log-sum-weight
-    rho: torch.Tensor         # subtree momentum sum
-    sum_accept: torch.Tensor
-    turning: torch.Tensor
-    diverging: torch.Tensor
-
-
-def _popcount(n):
-    return bin(n).count("1")
-
-
-def _ctz(n):
-    return (n & -n).bit_length() - 1
-
-
 def _build_subtree(vag_fn, metric, eps_signed, depth, z0, r0, g0, joint0,
                    leaf_logu, active, max_depth, syncs):
     """Build up to 2^depth leapfrog steps outward from (z0, r0, g0) for
     the chains in ``active``; a chain stops on divergence or an internal
-    U-turn. ``leaf_logu`` (C, 2^depth) holds one log-uniform per leaf."""
+    U-turn. ``leaf_logu`` (C, 2^depth) holds one log-uniform per leaf.
+
+    CUDA tensors under a diagonal metric take the leaf kernel
+    (``leaf.LeafKernel``: one launch a leaf after the value-and-grad, and
+    one flag read; ``syncs.leaf_kernel`` counts its leaves); the CPU and a
+    dense metric take the plain leaf (``leaf.leaf_plain``)."""
+    # at leaf 0 every chain of ``active`` is live, which the caller just tested
+    if leaf.uses_kernel(z0, metric):
+        k = leaf.LeafKernel(metric, eps_signed, z0, r0, g0, joint0, leaf_logu, active,
+                            max_depth)
+        for n in range(1 << depth):
+            if n > 0 and not syncs.flag(k.live_flag(n - 1)):
+                break
+            logp, g = vag_fn(k.z_in)
+            k.step(n, logp, g, has_next=n + 1 < 1 << depth)
+            syncs.leaf_kernel += 1
+        return k.subtree()
     c, d = z0.shape
-    st = _Subtree(
-        n=torch.zeros(c, dtype=torch.int32, device=z0.device),
-        z=z0, r=r0, g=g0,
-        r_first=torch.zeros_like(r0),
-        z_prop=z0,
-        logp_prop=torch.zeros_like(joint0),
-        g_prop=g0,
-        joint_prop=joint0,
-        lsw=torch.full_like(joint0, -math.inf),
-        rho=torch.zeros_like(r0),
-        sum_accept=torch.zeros_like(joint0),
-        turning=torch.zeros(c, dtype=torch.bool, device=z0.device),
-        diverging=torch.zeros(c, dtype=torch.bool, device=z0.device),
-    )
+    st = leaf.subtree_init(z0, r0, g0, joint0)
     ckpt = torch.zeros(c, max_depth, 3, d, dtype=z0.dtype, device=z0.device)
-    neg_inf = torch.full_like(joint0, -math.inf)
-    zero = torch.zeros_like(joint0)
     for n in range(1 << depth):
         live = active & ~st.turning & ~st.diverging
-        # at leaf 0 ``live`` is ``active``, which the caller just tested
         if n > 0 and not syncs.any(live):
             break
-        z, r, logp, g = leapfrog(vag_fn, st.z, st.r, st.g, eps_signed, metric)
-        joint = logp - kinetic_energy(metric, r)
-        delta = joint - joint0
-        # NaN-safe: a non-finite delta counts as divergent
-        div_leaf = ~(delta >= -DIVERGENCE_THRESHOLD)
-        lw = torch.where(div_leaf, neg_inf, delta)  # uncapped weight
-        accept = torch.where(div_leaf, zero,
-                             torch.exp(torch.clamp_max(delta, 0.0)))
-        rho = st.rho + torch.where(div_leaf[:, None], torch.zeros_like(r), r)
-        r_first = r if n == 0 else st.r_first
-
-        new_lsw = torch.logaddexp(st.lsw, lw)
-        # the ~div_leaf guard keeps a (-inf) - (-inf) NaN out of the test
-        take = live & ~div_leaf & (leaf_logu[:, n] < lw - new_lsw)
-
-        if n % 2 == 0:
-            slot = min(_popcount(n), max_depth - 1)
-            rows = torch.stack([r, rho, st.r], dim=1)
-            ckpt[:, slot] = keep(live, rows, ckpt[:, slot])
-            turning = torch.zeros_like(st.turning)
-        else:
-            idx_max = _popcount(n) - 1
-            idx_min = idx_max - _ctz(n + 1) + 1
-            turning = ~div_leaf & _iterative_uturn_check(
-                metric, r, rho, ckpt, idx_min, idx_max)
-
-        st = _Subtree(
-            n=st.n + live.to(torch.int32),
-            z=keep(live, z, st.z),
-            r=keep(live, r, st.r),
-            g=keep(live, g, st.g),
-            r_first=keep(live, r_first, st.r_first),
-            z_prop=keep(take, z, st.z_prop),
-            logp_prop=keep(take, logp, st.logp_prop),
-            g_prop=keep(take, g, st.g_prop),
-            joint_prop=keep(take, joint, st.joint_prop),
-            lsw=keep(live, new_lsw, st.lsw),
-            rho=keep(live, rho, st.rho),
-            sum_accept=keep(live, st.sum_accept + accept, st.sum_accept),
-            turning=keep(live, turning, st.turning),
-            diverging=keep(live, div_leaf, st.diverging),
-        )
+        st = leaf.leaf_plain(vag_fn, metric, eps_signed, n, st, joint0, leaf_logu[:, n], live,
+                             ckpt, max_depth)
     return st
 
 

@@ -127,7 +127,8 @@ def sample_chains_sharded(ir, num_chains, mesh=None, *, seed=0, data=None,
     draws, stats = sampler.run(num_chains=num_chains // dp, seed=rank_seed(seed, mesh),
                                data=data, return_unconstrained=True)
     # the run's counts stay this rank's; the per-chain stats are gathered
-    counts = {k: stats.pop(k) for k in ("host_syncs", "vag_calls", "vag_calls_lik_kernel")}
+    counts = {k: stats.pop(k) for k in ("host_syncs", "vag_calls", "vag_calls_lik_kernel",
+                                        "leaf_kernel_leaves")}
     gather = _host_gather(mesh)
     draws = gather(draws)
     stats = {k: gather(v) for k, v in stats.items()}

@@ -59,14 +59,15 @@ def test_posterior_and_stats(run):
             "inv_mass": (C, d), "recoveries": (C,), "rescues": (C,),
             "divergences": (C,)}
     # and the port's counts: warmup's steps per chain, the run's host
-    # syncs, value-and-grad calls by site and those that ran the GLM
-    # likelihood kernel (none here)
-    counts = {"host_syncs", "vag_calls", "vag_calls_lik_kernel"}
+    # syncs, value-and-grad calls by site, those that ran the GLM
+    # likelihood kernel and the leaves that the leaf kernel ran (none here)
+    counts = {"host_syncs", "vag_calls", "vag_calls_lik_kernel", "leaf_kernel_leaves"}
     assert ({k: v.shape for k, v in stats.items() if k not in counts}
             == dict(want, n_steps_warmup=(C,)))
     assert stats["host_syncs"] == sampler.last_run["host_syncs"]
     assert stats["vag_calls"] == sampler.last_run["vag_calls"]
     assert stats["vag_calls_lik_kernel"] == sampler.last_run["vag_calls_lik_kernel"] == 0
+    assert stats["leaf_kernel_leaves"] == sampler.last_run["leaf_kernel_leaves"] == 0
     assert np.isfinite(draws).all() and (stats["step_size"] > 0).all()
     # pooled adaptation gives every chain the same inverse mass
     assert np.allclose(stats["inv_mass"], stats["inv_mass"][:1])
