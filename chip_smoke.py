@@ -10,25 +10,27 @@ Phases, each printing JSON lines:
                tree binding's g++ build (exmc_tpu_torch/native) and its
                lockstep with the card's masked tree on 300 trees of
                forced directions (native:lockstep);
-  3. ops     — the public op ``fused_leapfrog_gaussian`` driven at four
-               shapes (launch counts read around that run), then each
-               kernel held against its plain PyTorch version on the same
-               inputs and timed with CUDA events beside its bound; then
-               the Bernoulli-logit GLM kernel (``ops.glm_logit``) at
-               covertype's shape, 64 chains x 581,012 rows x 54 columns,
-               against its plain version in float64, timed beside its
-               bound and the plain version in float32;
-  4. main    — the bench pipeline (eight schools, 1024 chains, superchain
+  3. main    — the bench pipeline (eight schools, 1024 chains, superchain
                K=32, 200+500 iterations, pooled adaptation, ensemble
                rescue, max_depth 10) with its posterior checked against
-               the statistical target, its leaves run by the leaf kernel,
-               and the compiled model checked against the same model on
-               the CPU; then, in the ops phase's lines, the NUTS tree's
-               leaf kernel (``nuts.leaf.LeafKernel``) against the plain
-               leaf over eight leaves at eight schools' and covertype's
-               (chains, d), 1024 x 10 and 64 x 55, with its launch count,
-               and one launch timed beside its bound and the plain
-               leaf's time;
+               the statistical target, its leaves run by the leaf kernel
+               (the run's ``leaf_kernel_leaves``), and the compiled model
+               checked against the same model on the CPU;
+  4. ops     — after the main path, since a profiler session can slow
+               the process's later launches (PERF.md §7): the public op
+               ``fused_leapfrog_gaussian`` held against its plain PyTorch
+               version at four shapes and timed with CUDA events beside
+               its bound, then driven once a shape under a profiler that
+               counts its kernel's launches on the device; the
+               Bernoulli-logit GLM kernel (``ops.glm_logit``) at
+               covertype's shape, 64 chains x 581,012 rows x 54 columns,
+               against its plain version in float64 (that call's launches
+               counted the same way), timed beside its bound and the plain
+               version in float32; the NUTS tree's leaf kernel
+               (``nuts.leaf.LeafKernel``) against the plain leaf over eight
+               leaves at eight schools' and covertype's (chains, d),
+               1024 x 10 and 64 x 55, with its launches counted, and one
+               launch timed beside its bound and the plain leaf's time;
   5. pool    — one spawn pool of POOL_WORKERS processes sharing the card,
                each taking the next task, longest first (POOL_COST_S):
                * suite: the seven-model suite under the JAX package's
@@ -326,19 +328,26 @@ def leapfrog_bound(c, d, k):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_ops():
-    """Drive the op's path, then compare and time each shape."""
-    fused_leapfrog_gaussian.launches = 0
-    for i, (c, d, k) in enumerate(OPS_SHAPES):
-        q, p, mu, prec, inv = leapfrog_inputs(c, d, i)
-        qf, pf, lf = fused_leapfrog_gaussian(q, p, mu, prec, inv, OPS_EPS, k)
-        torch.cuda.synchronize()
-        if qf.shape != (c, d) or lf.shape != (c,) or not bool(
-                torch.isfinite(qf).all() & torch.isfinite(pf).all()
-                & torch.isfinite(lf).all()):
-            fail(f"fused_leapfrog_gaussian at {(c, d, k)}: bad output")
-    path_launches = fused_leapfrog_gaussian.launches
+def device_profile():
+    """A ``torch.profiler`` session that records the card's kernels."""
+    from torch.profiler import ProfilerActivity, profile
 
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def kernel_events(prof, name):
+    """The device events of a finished ``device_profile`` session whose
+    kernel's name holds ``name``."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and name in e.name()]
+
+
+def phase_ops():
+    """Compare and time each shape, then drive the op's path once a shape
+    under a profiler. Returns (the kernel's launches on the device in that
+    drive, the rows)."""
     rows = []
     for i, (c, d, k) in enumerate(OPS_SHAPES):
         q, p, mu, prec, inv = leapfrog_inputs(c, d, i)
@@ -366,13 +375,24 @@ def phase_ops():
             fail(f"fused_leapfrog_gaussian at {(c, d, k)} disagrees with the "
                  f"plain version: q/p {err_qp}, logp {err_logp}")
         rows.append(row)
-    return path_launches, rows
+
+    with device_profile() as prof:
+        for i, (c, d, k) in enumerate(OPS_SHAPES):
+            q, p, mu, prec, inv = leapfrog_inputs(c, d, i)
+            qf, pf, lf = fused_leapfrog_gaussian(q, p, mu, prec, inv, OPS_EPS, k)
+            torch.cuda.synchronize()
+            if qf.shape != (c, d) or lf.shape != (c,) or not bool(
+                    torch.isfinite(qf).all() & torch.isfinite(pf).all()
+                    & torch.isfinite(lf).all()):
+                fail(f"fused_leapfrog_gaussian at {(c, d, k)}: bad output")
+    return len(kernel_events(prof, "fused_leapfrog_kernel")), rows
 
 
 def phase_glm_kernel():
     """The GLM likelihood kernel at covertype's shape against its plain
-    version in float64, and its time beside its bound and the plain
-    version's in float32."""
+    version in float64, with that call's launches of the kernel counted on
+    the device, and its time beside its bound and the plain version's in
+    float32."""
     t0 = time.perf_counter()
     c, n, d = GLM_SHAPE
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -380,8 +400,10 @@ def phase_glm_kernel():
     y = (torch.rand(n, generator=g, device="cuda") < 0.5).float()
     beta = torch.randn(c, d, generator=g, device="cuda") * 0.2
     b0 = torch.randn(c, generator=g, device="cuda") * 0.2
-    glm_logit.glm_logit_value_and_grad.launches = 0
-    lp, g_beta, g_b0 = glm_logit.glm_logit_value_and_grad(x, y, beta, b0)
+    with device_profile() as prof:
+        lp, g_beta, g_b0 = glm_logit.glm_logit_value_and_grad(x, y, beta, b0)
+        torch.cuda.synchronize()
+    launches = len(kernel_events(prof, "glm_logit_partials"))
     x64, y64, beta64, b064 = x.double(), y.double(), beta.double(), b0.double()
     want = glm_logit.glm_logit_plain(x64, y64, beta64, b064)
     eta = beta64 @ x64.T + b064[:, None]
@@ -399,11 +421,13 @@ def phase_glm_kernel():
            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "share_of_bound": max(t_ops, t_bytes) / kernel_ms, "library_ms": None,
-           "launches": glm_logit.glm_logit_value_and_grad.launches,
+           "launches": launches,
            "seconds": time.perf_counter() - t0}
     emit({"phase": "ops", "kernel": "glm_logit", **row})
     if not max(err.values()) <= GLM_TOL:
         fail(f"glm_logit at {GLM_SHAPE} disagrees with the plain version: {err}")
+    if launches != 1:
+        fail(f"glm_logit: one call launched the kernel {launches} times")
     return row
 
 
@@ -431,21 +455,17 @@ def time_leaf_step(k, logp, g, reps=200):
     kernel events, mean ms between CUDA events recorded around each
     launch, which adds the launch's path from the host); every chain is
     set live before each launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for e0, e1 in zip(starts, ends):
             k.live.fill_(True)
             e0.record()
             k.step(7, logp, g, has_next=True)
             e1.record()
         torch.cuda.synchronize()
-    device_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA and "leaf_step" in e.name()]
+    device_ns = [e.duration_ns() for e in kernel_events(prof, "leaf_step")]
     issue_ms = float(np.mean([a.elapsed_time(b) for a, b in zip(starts, ends)][10:]))
     return (float(np.median(device_ns)) / 1e6 if device_ns else None), issue_ms
 
@@ -457,32 +477,34 @@ def phase_leaf_kernel():
     must be bit-equal, the masks equal; joint and lsw lie within 4 d ulps
     of the magnitudes the kinetic energy adds. Then one launch of an odd
     leaf that checks three slots, timed beside its bound and the plain
-    leaf's time (``time_leaf_step``)."""
+    leaf's time (``time_leaf_step``). The start and the eight leaves run
+    under a profiler, which counts their launches on the device."""
     t0 = time.perf_counter()
     rows = []
     for i, (c, d) in enumerate(LEAF_SHAPES):
-        leaf.LeafKernel.launches = 0
         vag, metric, eps, z0, r0, g0, joint0, logu, active = leaf_inputs(c, d, 21 + i)
-        k = leaf.LeafKernel(metric, eps, z0, r0, g0, joint0, logu, active, 5)
-        exact, worst = True, 0.0
-        for n in range(8):
-            st = leaf.Subtree(*(t.clone() for t in k.subtree()))
-            ckpt, live = k.ckpt.clone(), k.live.clone()
-            want = leaf.leaf_plain(vag, metric, eps, n, st, joint0, logu[:, n], live, ckpt, 5)
-            k.step(n, *vag(k.z_in), has_next=n < 7)
-            got = k.subtree()
-            for name in ("n", "z", "r", "g", "r_first", "z_prop", "logp_prop", "g_prop", "rho",
-                         "turning", "diverging"):
-                exact &= torch.equal(getattr(got, name), getattr(want, name))
-            exact &= torch.equal(k.ckpt, ckpt) and torch.equal(
-                k.live, active & ~want.turning & ~want.diverging)
-            bound = 4 * d * torch.finfo(torch.float32).eps * (
-                1 + joint0.abs() + want.joint_prop.abs() + kinetic_energy(metric, want.r))
-            for name in ("joint_prop", "lsw"):
-                a, b = getattr(got, name), getattr(want, name)
-                err = torch.where(a == b, 0.0, (a - b).abs() / bound)
-                worst = max(worst, float(torch.nan_to_num(err, nan=np.inf).max()))
-        launches = leaf.LeafKernel.launches
+        with device_profile() as prof:
+            k = leaf.LeafKernel(metric, eps, z0, r0, g0, joint0, logu, active, 5)
+            exact, worst = True, 0.0
+            for n in range(8):
+                st = leaf.Subtree(*(t.clone() for t in k.subtree()))
+                ckpt, live = k.ckpt.clone(), k.live.clone()
+                want = leaf.leaf_plain(vag, metric, eps, n, st, joint0, logu[:, n], live, ckpt, 5)
+                k.step(n, *vag(k.z_in), has_next=n < 7)
+                got = k.subtree()
+                for name in ("n", "z", "r", "g", "r_first", "z_prop", "logp_prop", "g_prop", "rho",
+                             "turning", "diverging"):
+                    exact &= torch.equal(getattr(got, name), getattr(want, name))
+                exact &= torch.equal(k.ckpt, ckpt) and torch.equal(
+                    k.live, active & ~want.turning & ~want.diverging)
+                bound = 4 * d * torch.finfo(torch.float32).eps * (
+                    1 + joint0.abs() + want.joint_prop.abs() + kinetic_energy(metric, want.r))
+                for name in ("joint_prop", "lsw"):
+                    a, b = getattr(got, name), getattr(want, name)
+                    err = torch.where(a == b, 0.0, (a - b).abs() / bound)
+                    worst = max(worst, float(torch.nan_to_num(err, nan=np.inf).max()))
+            torch.cuda.synchronize()
+        launches = {name: len(kernel_events(prof, name)) for name in ("leaf_start", "leaf_step")}
         logp, g = vag(k.z_in)
         kernel_ms, issue_ms = time_leaf_step(k, logp, g)
         st = leaf.Subtree(*(t.clone() for t in k.subtree()))
@@ -502,6 +524,8 @@ def phase_leaf_kernel():
         emit({"phase": "ops", "kernel": "nuts_leaf", **row})
         if not exact or not worst <= 1.0:
             fail(f"nuts_leaf at {(c, d)} disagrees with the plain leaf: {row}")
+        if launches != {"leaf_start": 1, "leaf_step": 8}:
+            fail(f"nuts_leaf at {(c, d)}: the start and eight leaves launched {launches}")
         rows.append(row)
     return {"rows": rows, "seconds": time.perf_counter() - t0}
 
@@ -524,17 +548,11 @@ def check_model_on_card():
 
 def phase_main(num_warmup, num_samples):
     model_err = check_model_on_card()
-    fused_leapfrog_gaussian.launches = 0
-    leaf.LeafKernel.launches = 0
     res = bench.run(device="cuda", num_chains=1024, num_warmup=num_warmup,
                     num_samples=num_samples, num_superchains=32)
-    main_launches = {"fused_leapfrog_gaussian": fused_leapfrog_gaussian.launches,
-                     "nuts_leaf": leaf.LeafKernel.launches}
     det = res["detail"]
-    out = {"phase": "main", "ess_per_s": res["value"], **det,
-           "model_vs_cpu_max_abs_err": model_err,
-           "kernel_launches": main_launches}
-    emit(out)
+    emit({"phase": "main", "ess_per_s": res["value"], **det,
+          "model_vs_cpu_max_abs_err": model_err})
     checks = [
         (abs(det["mu_mean"] - 4.4) < 0.3, "mu"),
         (abs(det["tau_mean"] - 3.6) < 0.3, "tau"),
@@ -546,9 +564,9 @@ def phase_main(num_warmup, num_samples):
     for ok, name in checks:
         if not ok:
             fail(f"main path: {name} out of bounds ({json.dumps(det)})")
-    if main_launches["nuts_leaf"] == 0:
+    if det["leaf_kernel_leaves"] == 0:
         fail("main path: the NUTS leaf kernel never ran")
-    return main_launches
+    return det["leaf_kernel_leaves"]
 
 
 def pool_tasks():
@@ -572,17 +590,15 @@ POOL_PHASES = ("suite", "golds", "entry", "engines", "vi", "post", "families", "
 
 
 def run_task(task):
-    """One pool task in a worker process: a list of JSON lines, each
-    with its phase and the fused-leapfrog kernel's launches read from
-    the worker's counter around the task. A task that raises returns
-    one line with the error, reported after the pool."""
+    """One pool task in a worker process: a list of JSON lines. A task
+    that raises returns one line with the error, reported after the
+    pool."""
     kind, name = task
     try:
         return _run_task(kind, name)
     except Exception:  # noqa: BLE001 - every task's fault is reported
         phase = "vi" if name in ("approx", "pathfinder_init") else PHASE_OF[kind]
-        return [{"phase": phase, "task": name, "error": traceback.format_exc()[-3000:],
-                 "fused_leapfrog_gaussian_launches": 0}]
+        return [{"phase": phase, "task": name, "error": traceback.format_exc()[-3000:]}]
 
 
 def _run_task(kind, name):
@@ -592,23 +608,11 @@ def _run_task(kind, name):
         # worst_mean_use and sd_ratio_range sum it up
         return [{"phase": "golds", **{k: v for k, v in res.items() if k != "params"}}]
     if kind == "suite":
-        fused_leapfrog_gaussian.launches = 0
-        res = suite.run_checked(name, *SUITE_ITERS, device="cuda")
-        return [{"phase": "suite", **res,
-                 "fused_leapfrog_gaussian_launches": fused_leapfrog_gaussian.launches}]
-    if kind == "engines":
-        fused_leapfrog_gaussian.launches = 0
-        lines = [{"task": name, **res} for res in engines.run_task(name, "cuda")]
-        for i, line in enumerate(lines):
-            line["fused_leapfrog_gaussian_launches"] = (
-                fused_leapfrog_gaussian.launches if i == 0 else 0)
-        return lines
-    if kind in ("post", "families", "parallel", "apps"):
-        fused_leapfrog_gaussian.launches = 0
-        module = {"post": post, "families": families, "parallel": parallel, "apps": apps}[kind]
-        lines = [{"task": name, **res} for res in module.run_task(name, "cuda")]
-        lines[0]["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
-        return lines
+        return [{"phase": "suite", **suite.run_checked(name, *SUITE_ITERS, device="cuda")}]
+    if kind in ("engines", "post", "families", "parallel", "apps"):
+        module = {"engines": engines, "post": post, "families": families,
+                  "parallel": parallel, "apps": apps}[kind]
+        return [{"task": name, **res} for res in module.run_task(name, "cuda")]
     return [{"phase": "entry", **res} for res in entry.run_check(name, "cuda")]
 
 
@@ -616,7 +620,7 @@ def phase_pool(workers=POOL_WORKERS):
     """The suite, the golds and the entry checks in a pool of ``workers``
     processes, each taking the next task, longest first; a gold that
     fails under the card recipe is run again here at the JAX battery's
-    recipe. Returns the fused-leapfrog kernel's launches of each part."""
+    recipe. Returns the parallel phase's lines (the stream task's)."""
     t0 = time.perf_counter()
     tasks = pool_tasks()
     lines = []
@@ -628,8 +632,6 @@ def phase_pool(workers=POOL_WORKERS):
                 lines.append(line)
     seconds = time.perf_counter() - t0
     by_phase = {p: [x for x in lines if x["phase"] == p] for p in POOL_PHASES}
-    launches = {p: sum(x.pop("fused_leapfrog_gaussian_launches") for x in xs)
-                for p, xs in by_phase.items()}
     failures = {p: [f"{x['task']}: {x['error']}" for x in xs if "error" in x]
                 for p, xs in by_phase.items()}
     by_phase = {p: [x for x in xs if "error" not in x] for p, xs in by_phase.items()}
@@ -640,7 +642,7 @@ def phase_pool(workers=POOL_WORKERS):
             failures["suite"].append(f"{res['model']}: {'; '.join(res['gate_failures'])}")
     n_suite = len(by_phase["suite"]) + n_errors["suite"]
     emit({"phase": "suite_summary", "n_pass": n_suite - len(failures["suite"]),
-          "n": n_suite, "fused_leapfrog_gaussian_launches": launches["suite"]})
+          "n": n_suite})
 
     rerun = []
     for res in by_phase["golds"]:
@@ -650,7 +652,6 @@ def phase_pool(workers=POOL_WORKERS):
             failures["golds"].append(f"{res['model']}: compiled model differs from the CPU")
             continue
         again = validation.run_named_gold(res["model"], "jax", check_compile=False)
-        launches["golds"] += again.pop("fused_leapfrog_gaussian_launches")
         emit({"phase": "golds", "recipe": "jax",
               **{k: v for k, v in again.items() if k != "params"}})
         rerun.append(res["model"])
@@ -660,16 +661,14 @@ def phase_pool(workers=POOL_WORKERS):
     emit({"phase": "golds_summary", "n_pass": n - len(failures["golds"]), "n": n,
           "card_recipe": validation.CARD_RECIPE,
           "card_overrides": validation.CARD_OVERRIDES,
-          "rerun_at_jax_recipe": rerun,
-          "fused_leapfrog_gaussian_launches": launches["golds"]})
+          "rerun_at_jax_recipe": rerun})
 
     for res in by_phase["entry"]:
         if not res["ok"]:
             failures["entry"].append(f"{res['check']}: {'; '.join(res['failures'])}")
     n_entry = len(by_phase["entry"]) + n_errors["entry"]
     emit({"phase": "entry_summary", "n_pass": n_entry - len(failures["entry"]),
-          "n": n_entry,
-          "fused_leapfrog_gaussian_launches": launches["entry"]})
+          "n": n_entry})
 
     for p in ("engines", "vi", "post", "families", "parallel", "apps"):
         for res in by_phase[p]:
@@ -683,32 +682,27 @@ def phase_pool(workers=POOL_WORKERS):
           "rows": [{k: r.get(k) for k in ("model", "engine", "wall_s", "min_ess",
                                           "min_ess_per_s", "max_rhat", "syncs_per_iter",
                                           "num_steps_mean", "peak_mb", "ok")}
-                   for r in eng],
-          "fused_leapfrog_gaussian_launches": launches["engines"]})
+                   for r in eng]})
     n_vi = len(by_phase["vi"]) + n_errors["vi"]
-    emit({"phase": "vi_summary", "n_pass": n_vi - len(failures["vi"]), "n": n_vi,
-          "fused_leapfrog_gaussian_launches": launches["vi"]})
+    emit({"phase": "vi_summary", "n_pass": n_vi - len(failures["vi"]), "n": n_vi})
     rows = by_phase["post"]
     n_post = len(rows) + n_errors["post"]
     emit({"phase": "post_summary", "n_pass": n_post - len(failures["post"]), "n": n_post,
           "sbc": [{k: r.get(k) for k in ("check", "R", "L", "min_p", "min_ecdf_p",
                                          "divergence_rate", "host_syncs", "wall_s",
                                          "peak_mb", "jax_reference_tpu", "ok")}
-                  for r in rows if r["check"].startswith("sbc:")],
-          "fused_leapfrog_gaussian_launches": launches["post"]})
+                  for r in rows if r["check"].startswith("sbc:")]})
     rows = by_phase["families"]
     n_fam = len(rows) + n_errors["families"]
     emit({"phase": "families_summary", "n_pass": n_fam - len(failures["families"]),
           "n": n_fam,
           "tasks": [{k: r.get(k) for k in ("check", "wall_s", "host_syncs", "peak_mb", "ok")}
-                    for r in rows],
-          "fused_leapfrog_gaussian_launches": launches["families"]})
+                    for r in rows]})
     rows = by_phase["apps"]
     n_apps = len(rows) + n_errors["apps"]
     emit({"phase": "apps_summary", "n_pass": n_apps - len(failures["apps"]), "n": n_apps,
           "tasks": [{k: r.get(k) for k in ("check", "wall_s", "host_syncs", "peak_mb", "ok")}
-                    for r in rows],
-          "fused_leapfrog_gaussian_launches": launches["apps"]})
+                    for r in rows]})
     emit({"phase": "pool_summary", "seconds": seconds, "workers": workers,
           "tasks": len(tasks)})
 
@@ -724,7 +718,7 @@ def phase_pool(workers=POOL_WORKERS):
         fail(f"engines/vi/post/families/apps: {n_eng}, {n_vi}, {n_post}, {n_fam} and "
              f"{n_apps} results, expected {N_ENGINE_ROWS}, {N_VI_ROWS}, {N_POST_ROWS}, "
              f"{N_FAMILIES_ROWS} and {N_APPS_ROWS}")
-    return launches, by_phase["parallel"]
+    return by_phase["parallel"]
 
 
 def start_parallel(workdir):
@@ -742,8 +736,7 @@ def start_parallel(workdir):
 
 def phase_parallel(group, nccl, pool_lines):
     """Join the ranks, print their lines and the phase's summary with
-    ``pool_lines`` (the stream task's); returns the fused-leapfrog
-    kernel's launches in the ranks."""
+    ``pool_lines`` (the stream task's)."""
     lines = []
     for run in (group, nccl):
         try:
@@ -754,7 +747,6 @@ def phase_parallel(group, nccl, pool_lines):
     for line in lines:
         emit(line)
     lines += pool_lines
-    launches = sum(x.pop("fused_leapfrog_gaussian_launches", 0) for x in lines)
     failures = [f"{x['check']}: {'; '.join(x['failures'])}" for x in lines if not x["ok"]]
     by_check = {}
     for x in lines:
@@ -765,13 +757,11 @@ def phase_parallel(group, nccl, pool_lines):
           "eight_schools_dp2": [{k: x.get(k) for k in ("rank", "wall_s", "host_syncs",
                                                         "host_staged_collectives",
                                                         "peak_mb", "chain_ok")}
-                                for x in es],
-          "fused_leapfrog_gaussian_launches": launches})
+                                for x in es]})
     if failures:
         fail("parallel: " + " | ".join(failures))
     if len(lines) != N_PARALLEL_ROWS:
         fail(f"parallel: {len(lines)} results, expected {N_PARALLEL_ROWS}")
-    return launches
 
 
 def main(argv=None):
@@ -802,21 +792,20 @@ def main(argv=None):
     if not lockstep["ok"]:
         fail(f"native:lockstep: {'; '.join(lockstep['failures'])}")
 
+    main_leaves = phase_main(args.warmup, args.draws)
+    # after the main path: the kernels' checks count launches under a
+    # profiler session, which can slow this process's later launches
+    # (PERF.md §7)
     path_launches, rows = phase_ops()
     if path_launches != len(OPS_SHAPES):
         fail(f"ops path launched the kernel {path_launches} times, "
              f"expected {len(OPS_SHAPES)}")
     glm_row = phase_glm_kernel()
-    main_launches = phase_main(args.warmup, args.draws)
-    # after the main path: the leaf kernel's timing runs a profiler
-    # session, which can slow this process's later launches (PERF.md §7)
     leaf_rows = phase_leaf_kernel()
     with tempfile.TemporaryDirectory() as workdir:
         group, nccl = start_parallel(workdir)
         try:
-            pool_launches, stream_lines = phase_pool()
-            parallel_launches = (phase_parallel(group, nccl, stream_lines)
-                                 + pool_launches["parallel"])
+            phase_parallel(group, nccl, phase_pool())
         finally:
             group.kill()
             nccl.kill()
@@ -834,17 +823,7 @@ def main(argv=None):
         "replaces": "exmc_tpu/ops/fused_leapfrog.py:88",
         "launches": path_launches,
         "launches_path": "exmc_tpu_torch.ops.fused_leapfrog_gaussian at "
-                         f"{len(OPS_SHAPES)} shapes",
-        "main_path_launches": main_launches["fused_leapfrog_gaussian"],
-        "suite_path_launches": pool_launches["suite"],
-        "gold_path_launches": pool_launches["golds"],
-        "entry_path_launches": pool_launches["entry"],
-        "engines_path_launches": pool_launches["engines"],
-        "vi_path_launches": pool_launches["vi"],
-        "post_path_launches": pool_launches["post"],
-        "families_path_launches": pool_launches["families"],
-        "parallel_path_launches": parallel_launches,
-        "apps_path_launches": pool_launches["apps"],
+                         f"{len(OPS_SHAPES)} shapes, one call each",
         "max_abs_err": max(r["max_abs_err_qp"] for r in rows),
         "shape_c_d_k": big["shape_c_d_k"],
         "ms": big["ms"],
@@ -857,8 +836,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "exmc_tpu_torch/csrc/glm_logit.cu",
         "replaces": None,
-        "launches_path": "exmc_tpu_torch.ops.glm_logit at covertype's shape (its launches "
-                         "on the sampler paths are CUDA graph replays, which run no Python)",
+        "launches_path": "exmc_tpu_torch.ops.glm_logit at covertype's shape, one call",
         **glm_row,
     }, {
         "name": "nuts_leaf",
@@ -867,7 +845,7 @@ def main(argv=None):
         "replaces": None,
         "launches_path": "exmc_tpu_torch.nuts.leaf.LeafKernel at "
                          f"{len(LEAF_SHAPES)} shapes, 8 leaves each",
-        "main_path_launches": main_launches["nuts_leaf"],
+        "main_path_leaf_kernel_leaves": main_leaves,
         **leaf_rows,
     }], "seconds_total": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

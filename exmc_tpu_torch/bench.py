@@ -95,6 +95,7 @@ def run(device="cuda", num_chains=1024, num_warmup=200, num_samples=500,
             "mean_tree_depth": float(stats["depth"].mean()),
             "leapfrog_steps_sampling": int(stats["n_steps"].sum()),
             "host_syncs": sampler.last_run["host_syncs"],
+            "leaf_kernel_leaves": sampler.last_run["leaf_kernel_leaves"],
             "iterations": [num_warmup, num_samples],
             "peak_memory_bytes": peak,
             "baseline": "PyMC 1-chain 5 ESS/s (STANDARD_BENCHMARKS.md:139)",

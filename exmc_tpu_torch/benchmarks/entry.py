@@ -59,7 +59,6 @@ from exmc_tpu_torch.nuts.sampler import (
     sample,
     sample_stream,
 )
-from exmc_tpu_torch.ops import fused_leapfrog_gaussian
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 SEED = 42
@@ -414,9 +413,7 @@ def check_shared_warmup(device="cuda", chains=64, warmup=120, samples=120, gates
 
 def run_check(name, device="cuda", **kw):
     """One task of the entry phase: a list of result dicts, one per
-    check, each with its seconds and the fused-leapfrog kernel's
-    launches during the task (on the first)."""
-    fused_leapfrog_gaussian.launches = 0
+    check, each with the task's seconds."""
     t0 = time.perf_counter()
     if name == "chunked_stream":
         results = list(check_chunked_and_stream(device, **kw))
@@ -425,10 +422,7 @@ def run_check(name, device="cuda", **kw):
         results = [CHECKS[name](device, **kw)]
         names = [name]
     seconds = time.perf_counter() - t0
-    launches = fused_leapfrog_gaussian.launches
-    return [dict({"check": n, "task_seconds": seconds,
-                  "fused_leapfrog_gaussian_launches": launches if i == 0 else 0}, **r)
-            for i, (n, r) in enumerate(zip(names, results))]
+    return [dict({"check": n, "task_seconds": seconds}, **r) for n, r in zip(names, results)]
 
 
 CHECKS = {

@@ -68,7 +68,6 @@ from exmc_tpu_torch import diagnostics as diag
 from exmc_tpu_torch.chees import sample_chees, sample_snaper
 from exmc_tpu_torch.compiler import compile_logp
 from exmc_tpu_torch.nuts.sampler import NUTSSampler, _make_sampler, sample_stream
-from exmc_tpu_torch.ops.fused_leapfrog import fused_leapfrog_gaussian
 from exmc_tpu_torch.parallel import (
     make_mesh,
     sample_chains_sharded,
@@ -355,8 +354,7 @@ def check_chees_dp2(rank, mesh, size):
 
 def group_main(rank, names, size, device):
     """One rank's run of the group checks ``names``: a list of result
-    dicts, each with the fused-leapfrog kernel's launches in this rank
-    while it ran."""
+    dicts."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)
@@ -364,13 +362,10 @@ def group_main(rank, names, size, device):
     mesh_sp = make_mesh(dp=1, sp=dist.get_world_size(), device=device)
     lines = []
     for name in names:
-        fused_leapfrog_gaussian.launches = 0
         if name == "parallel:logistic_sp2":
-            res = check_logistic_sp2(rank, mesh_sp, size, mesh)
+            lines.append(check_logistic_sp2(rank, mesh_sp, size, mesh))
         else:
-            res = GROUP_CHECKS[name](rank, mesh, size)
-        res["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
-        lines.append(res)
+            lines.append(GROUP_CHECKS[name](rank, mesh, size))
     return lines
 
 
@@ -385,7 +380,6 @@ GROUP_CHECKS = {"parallel:eight_schools_dp2": check_eight_schools_dp2,
 
 def nccl_main(rank, size, device):
     """``parallel:nccl_world1`` in a one-rank NCCL group."""
-    fused_leapfrog_gaussian.launches = 0
     dev = torch.device(device)
     mesh = make_mesh(device=device)
     axis = mesh.axis("dp")
@@ -424,9 +418,7 @@ def nccl_main(rank, size, device):
         fails.append("data-parallel value-and-grad differs from the model's")
     if not out["sharded_run_equal"]:
         fails.append("sharded run differs from the unsharded run")
-    res = _result("parallel:nccl_world1", out, fails)
-    res["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
-    return [res]
+    return [_result("parallel:nccl_world1", out, fails)]
 
 
 def check_stream_example46(device="cuda", size=FULL):

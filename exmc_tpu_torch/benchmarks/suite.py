@@ -12,9 +12,8 @@ Run one model on the card:
 
 It prints one JSON line: the JAX package's result fields, plus host
 syncs per iteration, mean tree depth, the interweave acceptance, peak
-device memory, the posterior gates against ``REFERENCES``, the
-fused-leapfrog kernel's launches during the run, and on the card the
-number of interweave groups whose step and conditional metric ran once
+device memory, the posterior gates against ``REFERENCES``, and on the
+card the number of interweave groups whose step and conditional metric ran once
 under CUDA's sync check.
 """
 
@@ -29,7 +28,6 @@ from exmc_tpu_torch import Builder, dists
 from exmc_tpu_torch.diagnostics import _ess as ess, _rhat as rhat
 from exmc_tpu_torch.nuts.interweave import eligible_groups
 from exmc_tpu_torch.nuts.sampler import _make_sampler
-from exmc_tpu_torch.ops import fused_leapfrog_gaussian
 
 
 def simple_model():
@@ -443,11 +441,8 @@ def main(argv=None):
     ap.add_argument("--draws", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    fused_leapfrog_gaussian.launches = 0
     res = run_checked(args.model, args.warmup, args.draws,
                       device=args.device, seed=args.seed)
-    res["kernel_launches"] = {
-        "fused_leapfrog_gaussian": fused_leapfrog_gaussian.launches}
     print(json.dumps(res))
 
 

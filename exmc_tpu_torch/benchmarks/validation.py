@@ -29,7 +29,6 @@ from exmc_tpu_torch import Builder, dists
 from exmc_tpu_torch.compiler import compile_logp
 from exmc_tpu_torch.diagnostics import _rhat as rhat
 from exmc_tpu_torch.nuts.sampler import _make_sampler
-from exmc_tpu_torch.ops import fused_leapfrog_gaussian
 
 
 @dataclass
@@ -382,18 +381,15 @@ def compile_check(gs, device="cuda", n_points=8, seed=0, tol=1e-4):
 def run_named_gold(name, recipe="card", device="cuda", check_compile=True):
     """Build one gold, hold its compiled model against the CPU's
     (``check_compile``) and sample it under ``recipe`` ("card":
-    ``card_recipe``; "jax": the JAX battery's). The result carries the
-    fused-leapfrog kernel's launches during the gold's run; a worker
-    process of a pool runs this for one gold at a time."""
+    ``card_recipe``; "jax": the JAX battery's). A worker process of a
+    pool runs this for one gold at a time."""
     gs = build_golds([name])[name]
     res = {}
     if check_compile:
         ok, e_lp, e_g = compile_check(gs, device=device)
         res["compile_check"] = {"ok": ok, "logp_rel_err": e_lp, "grad_rel_err": e_g}
-    fused_leapfrog_gaussian.launches = 0
     res.update(run_gold(gs, device=device,
                         **(card_recipe(name) if recipe == "card" else JAX_RECIPE)))
-    res["fused_leapfrog_gaussian_launches"] = fused_leapfrog_gaussian.launches
     return res
 
 
@@ -428,15 +424,13 @@ def main(argv=None):
     names = [gold_name(m) for m in all_gold_standards()
              if not args.golds or gold_name(m) in args.golds]
     t0 = time.perf_counter()
-    n_pass = launches = 0
+    n_pass = 0
     for name in names:
         res = run_named_gold(name, args.recipe, args.device, args.check_compile)
         n_pass += res["gates_pass"] and res.get("compile_check", {"ok": True})["ok"]
-        launches += res["fused_leapfrog_gaussian_launches"]
         print(json.dumps(res), flush=True)
     print(json.dumps({"n_pass": n_pass, "n": len(names),
-                      "seconds": time.perf_counter() - t0,
-                      "fused_leapfrog_gaussian_launches": launches}), flush=True)
+                      "seconds": time.perf_counter() - t0}), flush=True)
 
 
 if __name__ == "__main__":

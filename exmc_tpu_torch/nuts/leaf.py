@@ -216,10 +216,8 @@ class LeafKernel:
     for each leaf n: the value-and-grad at ``z_in``, ``step(n, logp,
     g)``, and, before the next leaf, ``live_flag(n)``. The tensors must
     share one CUDA device and a float32 or float64 dtype; the inverse
-    mass is (C, d) or (d,). ``LeafKernel.launches`` counts the leaf
-    launches."""
-
-    launches = 0
+    mass is (C, d) or (d,). A run's ``HostSyncs.leaf_kernel`` counts its
+    leaves (``nuts/tree.py``)."""
 
     def __init__(self, metric, eps_signed, z0, r0, g0, joint0, leaf_logu, active, max_depth):
         if metric.dense:
@@ -305,7 +303,6 @@ class LeafKernel:
             slot, (idx_min, idx_max) = 0, checked_slots(n)
         self._launch(self._lib.nuts_leaf_step, self._ref, logp.data_ptr(), g.data_ptr(), n, slot,
                      idx_min, idx_max, int(has_next), self._stream)
-        LeafKernel.launches += 1
 
     def live_flag(self, n):
         """A one-element device tensor, nonzero if some chain is live after

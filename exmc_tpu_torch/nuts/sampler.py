@@ -59,7 +59,7 @@ from exmc_tpu_torch.nuts.interweave import (
     eligible_groups,
 )
 from exmc_tpu_torch.nuts.leapfrog import Metric, make_metric
-from exmc_tpu_torch.nuts.masked import HostSyncs, keep
+from exmc_tpu_torch.nuts.masked import VAG_SITES, HostSyncs, keep
 from exmc_tpu_torch.nuts.mass_matrix import (
     WelfordState,
     welford_finalize,
@@ -115,13 +115,6 @@ def _init_position(generator, shape, dtype, device, radius=2.0):
     """Stan-style random init: Uniform(-r, r) in unconstrained space."""
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return u * (2.0 * radius) - radius
-
-
-# where a NUTS run calls the model's value-and-grad (``HostSyncs.counted``
-# counts each site's calls): the tree's leapfrog steps, the init search,
-# the step-size search, the dead-chain recovery's fresh point, the
-# ensemble rescue and the interweave step
-VAG_SITES = ("leaf", "init", "eps_search", "recovery", "rescue", "interweave")
 
 
 def _find_valid_init(vag_fn, q0, generator, max_tries=100, syncs=None, group=None):
@@ -415,18 +408,6 @@ def _unflatten(cls, arrays, device, prefix=""):
     return cls(*vals)
 
 
-def _run_counts(syncs: HostSyncs, iterations, lik_kernel):
-    """``last_run`` of a run whose counts ``syncs`` holds; ``lik_kernel``:
-    the run's value-and-grad holds the likelihood kernel."""
-    calls = {site: syncs.vag_calls.get(site, 0) for site in VAG_SITES}
-    return {"host_syncs": syncs.count,
-            "host_syncs_warmup": syncs.count if syncs.warmup is None else syncs.warmup,
-            "iterations": iterations,
-            "vag_calls": calls,
-            "vag_calls_lik_kernel": sum(calls.values()) if lik_kernel else 0,
-            "leaf_kernel_leaves": syncs.leaf_kernel}
-
-
 def _fit_spans(run):
     """``run`` (a sampler method) as one ``exmc.fit`` span; with tracing
     on, the sampler's ``last_run`` then holds the fit's spans by name."""
@@ -459,20 +440,13 @@ class _Pipeline:
 @dataclass
 class NUTSSampler:
     """Reusable sampler over a compiled model. ``last_run`` holds what the
-    most recent run counted: its host syncs (``host_syncs``; before its
-    first post-warmup iteration, the init search included:
-    ``host_syncs_warmup``), its iterations, its value-and-grad calls by
-    site (``vag_calls``, keyed by ``VAG_SITES``), those of them whose
-    graph holds the Bernoulli-logit GLM kernel
-    (``vag_calls_lik_kernel``: all of them where
-    ``model.lik_kernel_terms`` names a term, else 0), the tree's leaves
-    that the leaf kernel ran (``leaf_kernel_leaves``; ``nuts/leaf.py``)
-    and, with
-    tracing on (``utils.profiling.tracing``), its spans by name
-    (``spans``: {name: {"count", "total_s", "self_s"}}). A model with
-    counters (``model.counters``, such as a Laplace marginal's) adds each
-    one's ``read()`` over the run under its ``name`` (counters of one
-    name merged), as ``stats["laplace"]``."""
+    most recent run counted (``HostSyncs.report``: host syncs,
+    value-and-grad calls by site, kernel shares), its iterations and,
+    with tracing on (``utils.profiling.tracing``), its spans by name
+    (``spans``: {name: {"count", "total_s", "self_s"}}). Its stats hold
+    ``HostSyncs.stats``: some of those counts, and a model's counters
+    (``model.counters``, such as a Laplace marginal's, as
+    ``stats["laplace"]``) read over the run."""
 
     model: CompiledModel
     num_warmup: int = DEFAULT_OPTS["num_warmup"]
@@ -603,16 +577,12 @@ class NUTSSampler:
             return flat0.expand(num_chains, d).clone()
         return _init_position(gen, (num_chains, d), default_dtype(), dev)
 
-    def _reset_counters(self):
-        """Zero the model's counters, which the run's stats read at its
-        end."""
-        for c in self.model.counters:
-            c.reset()
-
-    @property
-    def _lik_kernel(self):
-        """The run's value-and-grad is the model's, with the kernel."""
-        return bool(self.model.lik_kernel_terms) and self.vag_builder is None
+    def _record(self):
+        """A new run's ``HostSyncs``, which resets the model's counters.
+        The run's value-and-grad holds the GLM kernel where it is the
+        model's own and the model names a kernel term."""
+        return HostSyncs(lik_kernel=bool(self.model.lik_kernel_terms) and self.vag_builder is None,
+                         counters=self.model.counters)
 
     def _vag_iw(self, ddata):
         """The run's value-and-grad and interweave step, with its data
@@ -637,7 +607,7 @@ class NUTSSampler:
         vag, iw = self._vag_iw(ddata)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        syncs = HostSyncs()
+        syncs = self._record()
         q_inits = self._resolve_inits(init, num_chains, seed, ddata)
         q0, logp0, grad0 = _find_valid_init(syncs.counted(vag, "init"), q_inits, gen, syncs=syncs)
         seg_kw = dict(interweave_fn=iw, freeze_mask=self._freeze_mask,
@@ -690,7 +660,7 @@ class NUTSSampler:
         0."""
         dev = self.model.device
         vag, _ = self._vag_iw(ddata)
-        syncs = HostSyncs()
+        syncs = self._record()
         with profiling.span("exmc.init"):
             q_inits = self._resolve_inits(init, num_chains, seed, ddata)
             gen = torch.Generator(device=dev)
@@ -741,12 +711,8 @@ class NUTSSampler:
         def emit(i, q, stats):
             vals = {**constrain(q), **stats}
             host = {k: v.to("cpu", non_blocking=True) for k, v in vals.items()}
-            token = profiling.leaf_begin("exmc.sync") if profiling.TRACING else None
-            if q.device.type == "cuda":
-                torch.cuda.current_stream(q.device).synchronize()
-            if token is not None:
-                profiling.leaf_end("exmc.sync", token)
-            syncs.count += 1
+            syncs.read(torch.cuda.current_stream(q.device).synchronize
+                       if q.device.type == "cuda" else (lambda: None))
             host = {k: v.numpy() for k, v in host.items()}
             callback(i, {k: host[k] for k in names}, {k: host[k] for k in stats})
 
@@ -767,7 +733,6 @@ class NUTSSampler:
         constrained values and (num_chains,) stats."""
         if self.model.size == 0:
             return {}, {"note": "model has no free parameters"}
-        self._reset_counters()
         ddata = None if data is None else self.model.device_data(data)
         shared = self.shared_warmup and warm_start is None
         if shared:
@@ -779,9 +744,9 @@ class NUTSSampler:
                                       self._emitter(stream_cb, ddata, p.syncs),
                                       stream_every)
         # a shared warmup's iterations ran on chain 0 before p's
-        self.last_run = _run_counts(p.syncs, len(p.xs[0]) + (self.num_warmup if shared else 0),
-                                    self._lik_kernel)
-        return self._finish(p.carry, draws, st, ddata, return_unconstrained)
+        self.last_run = dict(p.syncs.report(),
+                             iterations=len(p.xs[0]) + (self.num_warmup if shared else 0))
+        return self._finish(p, draws, st, ddata, return_unconstrained)
 
     @_fit_spans
     def run_chunked(self, num_chains=1, chunk_iters=200, seed=0, init=None,
@@ -803,7 +768,6 @@ class NUTSSampler:
                              "shared_warmup=True runs through run()")
         if self.model.size == 0:
             return {}, {"note": "model has no free parameters"}
-        self._reset_counters()
         ddata = None if data is None else self.model.device_data(data)
         dev = self.model.device
         if resume_from is None:
@@ -813,9 +777,8 @@ class NUTSSampler:
             # the pipeline's structure (xs, options) from a start whose
             # carry, generator and counts the checkpoint then replaces. A
             # checkpoint written before the run counted warmup's steps
-            # and the value-and-grad calls has neither: those counts
-            # start at the resume, and warmup's host syncs at the first
-            # post-warmup iteration from there
+            # has none: they start at the resume (``HostSyncs.restore``
+            # does the same for the run's counts)
             with np.load(resume_from) as z:
                 arrays = {k: z[k] for k in z.files}
             p = self._start(num_chains, seed, None, warm_start, ddata)
@@ -823,11 +786,7 @@ class NUTSSampler:
             carry.setdefault("n_steps_warmup", np.zeros(num_chains, np.int32))
             p.carry = _unflatten(Carry, carry, dev)
             p.generator.set_state(torch.as_tensor(arrays["generator"]))
-            p.syncs.count = int(arrays["host_syncs"])
-            warmup = int(arrays.get("host_syncs_warmup", -1))
-            p.syncs.warmup = None if warmup < 0 else warmup
-            p.syncs.vag_calls = {k: int(arrays.get(f"vag_calls.{k}", 0)) for k in VAG_SITES}
-            p.syncs.leaf_kernel = int(arrays.get("leaf_kernel_leaves", 0))
+            p.syncs.restore(arrays)
             done = int(arrays["done"])
             draws_parts = [torch.as_tensor(arrays["draws"], device=dev)]
             stats_parts = [{k[5:]: torch.as_tensor(v, device=dev)
@@ -852,24 +811,19 @@ class NUTSSampler:
         draws = torch.cat(draws_parts, dim=1)
         stats = {k: torch.cat([s[k] for s in stats_parts], dim=1)
                  for k in stats_parts[0]}
-        self.last_run = _run_counts(p.syncs, total, self._lik_kernel)
-        return self._finish(p.carry, draws, stats, ddata, return_unconstrained)
+        self.last_run = dict(p.syncs.report(), iterations=total)
+        return self._finish(p, draws, stats, ddata, return_unconstrained)
 
     @staticmethod
     def _save_chunk_state(path, p: _Pipeline, done, draws_parts, stats_parts):
-        """The carry, the generator's state, the run's counts (host syncs,
-        value-and-grad calls, leaf-kernel leaves), the progress index and
-        the draws and stats so far, in one .npz."""
+        """The carry, the generator's state, the run's counts
+        (``HostSyncs.payload``), the progress index and the draws and
+        stats so far, in one .npz."""
         payload = {f"carry.{k}": (v.cpu().numpy() if torch.is_tensor(v)
                                   else np.asarray(v))
                    for k, v in _flatten(p.carry).items()}
         payload["generator"] = p.generator.get_state().numpy()
-        payload["host_syncs"] = np.asarray(p.syncs.count)
-        payload["host_syncs_warmup"] = np.asarray(
-            -1 if p.syncs.warmup is None else p.syncs.warmup)
-        for k in VAG_SITES:
-            payload[f"vag_calls.{k}"] = np.asarray(p.syncs.vag_calls.get(k, 0))
-        payload["leaf_kernel_leaves"] = np.asarray(p.syncs.leaf_kernel)
+        payload.update(p.syncs.payload())
         payload["done"] = np.asarray(done)
         payload["draws"] = torch.cat(draws_parts, dim=1).cpu().numpy()
         for k in stats_parts[0]:
@@ -879,9 +833,10 @@ class NUTSSampler:
             np.savez(f, **payload)
 
     @profiling.spanned("exmc.finish")
-    def _finish(self, carry, draws, st, ddata, return_unconstrained):
-        """The run's (trace or draws, stats) on the host; the run's counts
-        come from ``last_run``."""
+    def _finish(self, p: _Pipeline, draws, st, ddata, return_unconstrained):
+        """The run's (trace or draws, stats) on the host, with the counts
+        of ``p.syncs``."""
+        carry = p.carry
         stats = {k: v.cpu().numpy() for k, v in st.items()}
         stats["step_size"] = da_finalize(carry.da).cpu().numpy()
         stats["inv_mass"] = carry.metric.inv.cpu().numpy()
@@ -889,13 +844,7 @@ class NUTSSampler:
         stats["rescues"] = carry.rescues.cpu().numpy()
         stats["n_steps_warmup"] = carry.n_steps_warmup.cpu().numpy()
         stats["divergences"] = stats["diverging"].sum(axis=-1)
-        stats["host_syncs"] = self.last_run["host_syncs"]
-        stats["vag_calls"] = self.last_run["vag_calls"]
-        stats["vag_calls_lik_kernel"] = self.last_run["vag_calls_lik_kernel"]
-        stats["leaf_kernel_leaves"] = self.last_run["leaf_kernel_leaves"]
-        for name in dict.fromkeys(c.name for c in self.model.counters):
-            group = [c for c in self.model.counters if c.name == name]
-            stats[name] = group[0].read(*group[1:])
+        stats.update(p.syncs.stats())
         _warn_if_rescued(stats["rescues"])
         if return_unconstrained:
             return draws.cpu().numpy(), stats

@@ -100,9 +100,4 @@ def fused_leapfrog_gaussian(q, p, mu, prec, inv_mass, eps, num_steps):
     if rc != 0:
         raise RuntimeError("fused_leapfrog kernel launch failed: "
                            + lib.fused_leapfrog_error_string(rc).decode())
-    fused_leapfrog_gaussian.launches += 1
     return q_out, p_out, logp_out
-
-
-# kernel launches since the count was last set to 0
-fused_leapfrog_gaussian.launches = 0

@@ -107,13 +107,7 @@ def glm_logit_value_and_grad(x, y, beta, b0=None):
     if rc != 0:
         raise RuntimeError("glm_logit kernel launch failed: "
                            + lib.glm_logit_error_string(rc).decode())
-    glm_logit_value_and_grad.launches += 1
     return lp, g_beta, g_b0
-
-
-# kernel launches since the count was last set to 0 (a CUDA graph's
-# replay runs no Python: only its capture is counted)
-glm_logit_value_and_grad.launches = 0
 
 
 class _GlmLogit(torch.autograd.Function):

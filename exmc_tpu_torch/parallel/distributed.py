@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from exmc_tpu_torch.compiler import CompiledModel, compile_logp
+from exmc_tpu_torch.nuts.masked import HostSyncs
 from exmc_tpu_torch.nuts.sampler import _SAMPLER_OPT_KEYS, NUTSSampler
 from exmc_tpu_torch.parallel.sharding import make_data_parallel_vag, make_mesh, shard_data
 
@@ -93,9 +94,9 @@ def sample_chains_sharded(ir, num_chains, mesh=None, *, seed=0, data=None,
     rank (``make_mesh()`` without a process group) this is the unsharded
     run of the same seed, bit for bit.
 
-    stats adds ``chain_ok`` (finite logp at every kept draw),
-    ``redispatched`` (dead chains replaced by a retry run) and
-    ``host_syncs`` (this rank's)."""
+    stats adds ``chain_ok`` (finite logp at every kept draw) and
+    ``redispatched`` (dead chains replaced by a retry run); the run's
+    counts (``HostSyncs.stat_keys``) are this rank's."""
     if mesh is None:
         mesh = make_mesh()
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
@@ -127,8 +128,7 @@ def sample_chains_sharded(ir, num_chains, mesh=None, *, seed=0, data=None,
     draws, stats = sampler.run(num_chains=num_chains // dp, seed=rank_seed(seed, mesh),
                                data=data, return_unconstrained=True)
     # the run's counts stay this rank's; the per-chain stats are gathered
-    counts = {k: stats.pop(k) for k in ("host_syncs", "vag_calls", "vag_calls_lik_kernel",
-                                        "leaf_kernel_leaves")}
+    counts = {k: stats.pop(k) for k in HostSyncs.stat_keys(model.counters)}
     gather = _host_gather(mesh)
     draws = gather(draws)
     stats = {k: gather(v) for k, v in stats.items()}

@@ -198,11 +198,9 @@ def test_dispatch_takes_the_plain_leaf_on_the_cpu_and_for_a_dense_metric():
     eps = torch.full((c,), 0.5)
     diag = make_metric(torch.ones(c, d))
     dense = make_metric(torch.eye(d).expand(c, d, d).clone(), dense=True)
-    LeafKernel.launches = 0
     for metric in (diag, dense):
         _, syncs = _transitions(vag, metric, eps, q0, 3, 5, "cpu", 0)
         assert syncs.leaf_kernel == 0 and syncs.count > 0
-    assert LeafKernel.launches == 0
     on_card = types.SimpleNamespace(device=torch.device("cuda"))
     assert leaf.uses_kernel(on_card, diag)
     assert not leaf.uses_kernel(on_card, dense) and not leaf.uses_kernel(q0, diag)
@@ -310,7 +308,6 @@ def test_one_leaf_of_the_kernel_against_the_plain_leaf_on_card(c, d, dtype, shar
         seen["turning"] += int((want.turning & live).sum())
         seen["diverging"] += int((want.diverging & live).sum())
         seen["take"] += int((want.logp_prop != st.logp_prop).sum())
-    assert LeafKernel.launches > 0
     if c >= 16:
         assert min(seen.values()) > 0, seen
 

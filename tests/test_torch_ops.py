@@ -11,7 +11,8 @@ import torch
 
 from exmc_tpu.ops import fused_leapfrog_gaussian as jax_fused
 from exmc_tpu.ops.fused_leapfrog import reference_leapfrog_gaussian as jax_ref
-from exmc_tpu_torch.ops import fused_leapfrog_gaussian
+from exmc_tpu_torch import _build
+from exmc_tpu_torch.ops import fused_leapfrog as fl, fused_leapfrog_gaussian
 from exmc_tpu_torch.ops.fused_leapfrog import reference_leapfrog_gaussian
 
 
@@ -25,10 +26,15 @@ def _inputs(c, d, seed=0):
 
 
 @pytest.mark.parametrize("c,d,k", [(8, 4, 16), (16, 128, 64)])
-def test_plain_matches_jax_reference_and_pallas(c, d, k):
+def test_plain_matches_jax_reference_and_pallas(monkeypatch, c, d, k):
     arrs = _inputs(c, d)
     eps = 0.05
-    before = fused_leapfrog_gaussian.launches
+
+    def no_kernel(name):
+        raise AssertionError(f"the CPU path loaded the {name} kernel")
+
+    # CPU: no launch
+    monkeypatch.setattr(_build, "load", no_kernel)
     got = fused_leapfrog_gaussian(*(torch.as_tensor(a) for a in arrs), eps, k)
     ref = jax_ref(*(jnp.asarray(a) for a in arrs), eps, k)
     pallas = jax_fused(*(jnp.asarray(a) for a in arrs), eps, k, tile_c=c,
@@ -37,7 +43,6 @@ def test_plain_matches_jax_reference_and_pallas(c, d, k):
         for g, w, tol in zip(got, want, (1e-4, 1e-4, 1e-3)):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol,
                                        rtol=1e-4)
-    assert fused_leapfrog_gaussian.launches == before  # CPU: no launch
 
 
 def test_energy_conservation():
@@ -72,15 +77,31 @@ def test_wrapper_rejects_bad_input(bad):
         fused_leapfrog_gaussian(q, p, mu, prec, inv, 0.05, k)
 
 
+class _CountingLibrary:
+    """The kernel's bound library, counting the kernel's launches."""
+
+    def __init__(self, lib):
+        self.lib, self.launches = lib, 0
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def fused_leapfrog_gaussian_f32(self, *args):
+        self.launches += 1
+        return self.lib.fused_leapfrog_gaussian_f32(*args)
+
+
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
+def test_cuda_kernel_matches_plain(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    lib = _CountingLibrary(fl._bind(_build.load("fused_leapfrog")))
+    monkeypatch.setattr(fl, "_bind", lambda _: lib)
     for c, d, k in [(8, 4, 16), (16, 128, 64), (37, 300, 10), (1024, 256, 32)]:
         arrs = [torch.as_tensor(a, device="cuda") for a in _inputs(c, d)]
-        before = fused_leapfrog_gaussian.launches
+        before = lib.launches
         got = fused_leapfrog_gaussian(*arrs, 0.05, k)
-        assert fused_leapfrog_gaussian.launches == before + 1
+        assert lib.launches == before + 1
         want = reference_leapfrog_gaussian(*arrs, 0.05, k)
         torch.cuda.synchronize()
         for g, w, tol in zip(got, want, (1e-4, 1e-4, 1e-3)):

@@ -22,6 +22,8 @@ from exmc_tpu_torch.benchmarks.parallel import gaussian8_ir, simple_ir, start_ra
 from exmc_tpu_torch import chees
 from exmc_tpu_torch.chees import run_groups, sample_chees, sample_snaper
 from exmc_tpu_torch.compiler import compile_logp
+from exmc_tpu_torch.marginal import sv_marginal_model
+from exmc_tpu_torch.nuts.masked import HostSyncs
 from exmc_tpu_torch.nuts.step_size import da_finalize
 from exmc_tpu_torch.nuts.leapfrog import make_metric
 from exmc_tpu_torch.nuts.mass_matrix import WelfordState, welford_merge_across
@@ -423,18 +425,34 @@ def test_chees_mesh_of_one_rank_equals_no_mesh(engine):
         np.testing.assert_array_equal(np.asarray(s1[k]), np.asarray(s2[k]))
 
 
-@pytest.mark.parametrize("pooled", [False, True])
-def test_one_rank_mesh_equals_unsharded_run(pooled):
+@pytest.mark.parametrize("pooled,model", [(False, "simple"), (True, "simple"),
+                                          (False, "sv_marginal")],
+                         ids=["False", "True", "sv_marginal"])
+def test_one_rank_mesh_equals_unsharded_run(pooled, model):
     """``sample_chains_sharded`` on a mesh of one rank is the port's
-    unsharded run of the same chains and seed, bit for bit."""
-    opts = dict(num_warmup=40, num_samples=20, pooled_adaptation=pooled)
-    trace, stats = sample_chains_sharded(simple_ir(), 8, make_mesh(1, device="cpu"),
-                                         seed=5, **opts)
-    ref, ref_stats = exmc_tpu_torch.sample(simple_ir(), num_chains=8, seed=5, device="cpu",
+    unsharded run of the same chains and seed, bit for bit, with the
+    same counts: a Laplace marginal's counters (``stats["laplace"]``)
+    stay the run's dict, out of the per-chain gather."""
+    if model == "simple":
+        ir, chains, opts = simple_ir(), 8, dict(num_warmup=40, num_samples=20)
+    else:
+        r = np.random.default_rng(4).normal(scale=0.02, size=60)
+        ir, chains = sv_marginal_model(r, newton_iters=8), 2
+        opts = dict(num_warmup=5, num_samples=5, ncp=False)
+    opts["pooled_adaptation"] = pooled
+    trace, stats = sample_chains_sharded(ir, chains, make_mesh(1, device="cpu"), seed=5,
+                                         **opts)
+    ref, ref_stats = exmc_tpu_torch.sample(ir, num_chains=chains, seed=5, device="cpu",
                                            **opts)
-    np.testing.assert_array_equal(trace["mu"], ref["mu"])
+    for k in ref:
+        np.testing.assert_array_equal(trace[k], ref[k])
+    counts = HostSyncs.stat_keys(compile_logp(ir, device="cpu").counters)
+    assert ("laplace" in counts) == (model == "sv_marginal")
     for k in ref_stats:
-        np.testing.assert_array_equal(stats[k], ref_stats[k])
+        if k in counts:
+            assert stats[k] == ref_stats[k] and type(stats[k]) is type(ref_stats[k]), k
+        else:
+            np.testing.assert_array_equal(stats[k], ref_stats[k])
     assert stats["chain_ok"].all() and stats["redispatched"] == 0
 
 

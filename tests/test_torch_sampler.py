@@ -13,6 +13,7 @@ from exmc_tpu import diagnostics as jdiag
 from exmc_tpu.nuts import sampler as jsampler
 from exmc_tpu_torch import diagnostics as tdiag
 from exmc_tpu_torch.nuts import sampler as tsampler
+from exmc_tpu_torch.nuts.masked import HostSyncs
 
 Y8 = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
 S8 = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
@@ -58,10 +59,11 @@ def test_posterior_and_stats(run):
             "energy": (C, DRAWS), "logp": (C, DRAWS), "step_size": (C,),
             "inv_mass": (C, d), "recoveries": (C,), "rescues": (C,),
             "divergences": (C,)}
-    # and the port's counts: warmup's steps per chain, the run's host
-    # syncs, value-and-grad calls by site, those that ran the GLM
-    # likelihood kernel and the leaves that the leaf kernel ran (none here)
-    counts = {"host_syncs", "vag_calls", "vag_calls_lik_kernel", "leaf_kernel_leaves"}
+    # and the port's counts: warmup's steps per chain, and the run's
+    # counts that its record lists (host syncs, value-and-grad calls by
+    # site, those that ran the GLM likelihood kernel and the leaves that
+    # the leaf kernel ran, none here)
+    counts = set(HostSyncs.stat_keys(sampler.model.counters))
     assert ({k: v.shape for k, v in stats.items() if k not in counts}
             == dict(want, n_steps_warmup=(C,)))
     assert stats["host_syncs"] == sampler.last_run["host_syncs"]

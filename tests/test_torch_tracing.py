@@ -7,8 +7,11 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from exmc_tpu_torch.benchmarks.entry import _same_run
+from exmc_tpu_torch.marginal import LaplaceCounters
+from exmc_tpu_torch.nuts.masked import HostSyncs
 from exmc_tpu_torch.benchmarks.parallel import simple_ir
 from exmc_tpu_torch.nuts.sampler import VAG_SITES, _make_sampler, sample_stream
 from exmc_tpu_torch.utils import profiling
@@ -161,6 +164,37 @@ def test_resume_from_a_checkpoint_without_the_counts(tmp_path):
     assert (stats["n_steps_warmup"] < base[1]["n_steps_warmup"]).all()
     assert 0 < run["vag_calls"]["leaf"] < base[1]["vag_calls"]["leaf"]
     assert tuple(run["vag_calls"]) == VAG_SITES
+
+
+@pytest.mark.parametrize("warmup", [None, 17])
+def test_the_counts_come_back_from_a_checkpoint(tmp_path, warmup):
+    """Every count of a run's record, written with ``payload`` into an
+    .npz and read back with ``restore`` into a new record, comes back
+    equal. The model's counters, which restart at a resume, keep their
+    key in the stats."""
+    lap = LaplaceCounters(3)
+    saved = HostSyncs(lik_kernel=True, counters=(lap,))
+    saved.count, saved.warmup, saved.leaf_kernel = 41, warmup, 29
+    for i, site in enumerate(VAG_SITES):
+        vag = saved.counted(lambda q: q, site)
+        for _ in range(i + 1):
+            vag(0)
+    lap.add(torch.tensor(2.0, dtype=torch.float64), torch.tensor([1e-9, 1e-6]))
+    want, want_stats = saved.report(), saved.stats()
+    assert want_stats["laplace"]["calls"] == 1.0
+    assert min(v for v in want.values() if not isinstance(v, dict)) > 0
+    np.savez(tmp_path / "ckpt.npz", **saved.payload())
+    back = HostSyncs(lik_kernel=True, counters=(lap,))
+    with np.load(tmp_path / "ckpt.npz") as z:
+        back.restore({k: z[k] for k in z.files})
+    assert back.report() == want
+    assert (back.count, back.warmup, back.vag_calls, back.leaf_kernel) == (
+        saved.count, saved.warmup, saved.vag_calls, saved.leaf_kernel)
+    got_stats = back.stats()
+    assert tuple(got_stats) == HostSyncs.stat_keys((lap,)) == tuple(want_stats)
+    assert {k: got_stats[k] for k in want_stats if k != "laplace"} == {
+        k: want_stats[k] for k in want_stats if k != "laplace"}
+    assert got_stats["laplace"]["calls"] == 0.0
 
 
 def test_shared_warmup_steps_are_chain_zeros():
